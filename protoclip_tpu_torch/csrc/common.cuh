@@ -1,0 +1,46 @@
+// Shared helpers for the port's Hopper kernels.
+//
+// Every kernel is built into one shared library with a plain C interface
+// (see protoclip_tpu_torch/ops/_build.py) and launched through ctypes from
+// protoclip_tpu_torch/ops/kernels.py.  Each C entry point launches on the
+// stream it is given, allocates nothing, and returns cudaGetLastError().
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+// Activation dtype codes; must match _DTYPES in ops/kernels.py.
+enum { PCK_F32 = 0, PCK_BF16 = 1 };
+
+namespace pck {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Round a float to T and widen it again: the `.astype(dtype)` cast points
+// of the TPU kernel, kept in float registers.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+}  // namespace pck

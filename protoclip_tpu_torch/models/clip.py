@@ -1,0 +1,400 @@
+"""CLIP container: backbone registry, init, apply, weight import (counterpart
+of ``protoclip_tpu/models/clip.py``).
+
+The same 7 OpenAI backbones, with the architecture taken from the registry
+or inferred from a state dict's tensor shapes.  This slice of the port runs
+the ViT towers; the ResNet towers come with a later slice and raise
+:class:`NotImplementedError` until then.
+
+Parameters are nested dicts of tensors.  Transformer blocks are a list of
+per-layer dicts whose attention carries the fused ``wqkv`` (D, 3D) and
+``bqkv`` (3D,), built once here rather than on every call.  The compute
+dtype defaults to bfloat16, with LayerNorm affine and ``logit_scale`` kept
+in fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import zipfile
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from protoclip_tpu_torch.device import DeviceLike, resolve_device
+from protoclip_tpu_torch.models import text as _text
+from protoclip_tpu_torch.models import vit as _vit
+from protoclip_tpu_torch.ops.proto import l2_normalize
+
+Params = Dict[str, Any]
+
+RESNET_SLICE = "the ResNet-tower slice of the port (ROADMAP.md, port queue)"
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """Architecture hyperparameters (ref ``clip/model.py:241-295``)."""
+
+    name: str
+    embed_dim: int
+    image_resolution: int
+    vision_layers: Union[int, Tuple[int, int, int, int]]
+    vision_width: int
+    vision_patch_size: Optional[int]  # None for ResNet towers
+    context_length: int = 77
+    vocab_size: int = 49408
+    transformer_width: int = 512
+    transformer_layers: int = 12
+    # Head-count overrides for non-standard widths (None = OpenAI's
+    # 64-dims-per-head rule).
+    n_vision_heads: Optional[int] = None
+    n_text_heads: Optional[int] = None
+
+    @property
+    def is_vit(self) -> bool:
+        return self.vision_patch_size is not None
+
+    @property
+    def vision_heads(self) -> int:
+        return self.n_vision_heads or self.vision_width // 64
+
+    @property
+    def vision_heads_resnet(self) -> int:
+        return self.n_vision_heads or self.vision_width * 32 // 64
+
+    @property
+    def transformer_heads(self) -> int:
+        return self.n_text_heads or self.transformer_width // 64
+
+
+BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
+    "RN50": CLIPConfig("RN50", 1024, 224, (3, 4, 6, 3), 64, None),
+    "RN101": CLIPConfig("RN101", 512, 224, (3, 4, 23, 3), 64, None),
+    "RN50x4": CLIPConfig("RN50x4", 640, 288, (4, 6, 10, 6), 80, None, transformer_width=640),
+    "RN50x16": CLIPConfig(
+        "RN50x16", 768, 384, (6, 8, 18, 8), 96, None, transformer_width=768
+    ),
+    "ViT-B/32": CLIPConfig("ViT-B/32", 512, 224, 12, 768, 32),
+    "ViT-B/16": CLIPConfig("ViT-B/16", 512, 224, 12, 768, 16),
+    "ViT-L/14": CLIPConfig("ViT-L/14", 768, 224, 24, 1024, 14, transformer_width=768),
+}
+
+
+def _require_vit(cfg: CLIPConfig) -> None:
+    if not cfg.is_vit:
+        raise NotImplementedError(
+            f"{cfg.name}: ResNet image towers are not ported yet; they come with {RESNET_SLICE}"
+        )
+
+
+# -- apply ------------------------------------------------------------------
+
+
+def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
+    """(B, H, W, 3) preprocessed images -> (B, embed_dim) features."""
+    _require_vit(cfg)
+    return _vit.apply_vit(params["visual"], images, cfg)
+
+
+def encode_text(params: Params, tokens: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
+    """(B, context) token ids -> (B, embed_dim) features."""
+    return _text.apply_text(params["text"], tokens, cfg)
+
+
+def clip_forward(params: Params, images: torch.Tensor, tokens: torch.Tensor,
+                 cfg: CLIPConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contrastive logits (per image, per text), as ``clip/model.py:356-370``."""
+    img = l2_normalize(encode_image(params, images, cfg).float())
+    txt = l2_normalize(encode_text(params, tokens, cfg).float())
+    logits_per_image = params["logit_scale"].float().exp() * img @ txt.T
+    return logits_per_image, logits_per_image.T
+
+
+# -- init -------------------------------------------------------------------
+
+
+def init_clip_params(rng: np.random.Generator, cfg: CLIPConfig,
+                     dtype: torch.dtype = torch.float32) -> Params:
+    """Random CLIP parameters from a numpy generator (CPU tensors)."""
+    _require_vit(cfg)
+    return {
+        "visual": _vit.init_vit_params(rng, cfg, dtype),
+        "text": _text.init_text_params(rng, cfg, dtype),
+        "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32),
+    }
+
+
+# -- parameters carried from other layouts ----------------------------------
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _ln(scale, bias) -> Dict[str, torch.Tensor]:
+    return {"scale": _t(scale), "bias": _t(bias)}
+
+
+def _blocks_from_jax(stacked: Dict) -> list:
+    """Stacked ``(n_layers, ...)`` JAX block leaves -> per-layer port blocks."""
+    attn, mlp = stacked["attn"], stacked["mlp"]
+    return [
+        {
+            "ln_1": _ln(stacked["ln_1"]["scale"][i], stacked["ln_1"]["bias"][i]),
+            "attn": {
+                "wqkv": _t(np.concatenate([attn["wq"][i], attn["wk"][i], attn["wv"][i]], axis=1)),
+                "bqkv": _t(np.concatenate([attn["bq"][i], attn["bk"][i], attn["bv"][i]])),
+                "wo": _t(attn["wo"][i]),
+                "bo": _t(attn["bo"][i]),
+            },
+            "ln_2": _ln(stacked["ln_2"]["scale"][i], stacked["ln_2"]["bias"][i]),
+            "mlp": {k: _t(mlp[k][i]) for k in ("w_fc", "b_fc", "w_proj", "b_proj")},
+        }
+        for i in range(len(stacked["ln_1"]["scale"]))
+    ]
+
+
+def params_from_jax(np_params: Params, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                    device: DeviceLike = None) -> Params:
+    """The JAX package's CLIP parameters, as numpy arrays, -> the port's.
+
+    ``np_params`` is ``init_clip_params`` or ``convert_clip_state_dict``
+    output of ``protoclip_tpu.models.clip`` after
+    ``jax.tree_util.tree_map(np.asarray, ...)``.  Block leaves are
+    un-stacked, ``wqkv``/``bqkv`` built, and the result cast as
+    :func:`cast_params` does.
+    """
+    _require_vit(cfg)
+    vis, txt = np_params["visual"], np_params["text"]
+    params = {
+        "visual": {
+            "patch_embed": _t(vis["patch_embed"]),
+            "class_embedding": _t(vis["class_embedding"]),
+            "positional_embedding": _t(vis["positional_embedding"]),
+            "ln_pre": _ln(vis["ln_pre"]["scale"], vis["ln_pre"]["bias"]),
+            "blocks": _blocks_from_jax(vis["blocks"]),
+            "ln_post": _ln(vis["ln_post"]["scale"], vis["ln_post"]["bias"]),
+            "proj": _t(vis["proj"]),
+        },
+        "text": {
+            "token_embedding": _t(txt["token_embedding"]),
+            "positional_embedding": _t(txt["positional_embedding"]),
+            "blocks": _blocks_from_jax(txt["blocks"]),
+            "ln_final": _ln(txt["ln_final"]["scale"], txt["ln_final"]["bias"]),
+            "text_projection": _t(txt["text_projection"]),
+        },
+        "logit_scale": _t(np_params["logit_scale"]),
+    }
+    return to_device(cast_params(params, dtype), resolve_device(device))
+
+
+# -- OpenAI state dicts -----------------------------------------------------
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def infer_config_from_state_dict(sd: Dict[str, Any]) -> CLIPConfig:
+    """Shape-based architecture inference (ref ``clip/model.py:397-420``);
+    ViT checkpoints only in this slice."""
+    if "visual.proj" not in sd:
+        raise NotImplementedError(
+            f"ResNet checkpoints are not ported yet; they come with {RESNET_SLICE}"
+        )
+    vision_width = sd["visual.conv1.weight"].shape[0]
+    vision_layers = len(
+        [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]
+    )
+    patch = sd["visual.conv1.weight"].shape[-1]
+    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+    name = next(
+        (n for n, c in BACKBONE_CONFIGS.items()
+         if c.vision_layers == vision_layers and c.vision_width == vision_width
+         and c.vision_patch_size == patch),
+        "custom",
+    )
+    return CLIPConfig(
+        name,
+        int(sd["text_projection"].shape[1]),
+        int(patch * grid),
+        vision_layers,
+        int(vision_width),
+        int(patch),
+        int(sd["positional_embedding"].shape[0]),
+        int(sd["token_embedding.weight"].shape[0]),
+        int(sd["ln_final.weight"].shape[0]),
+        len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks")}),
+    )
+
+
+def _blocks_from_state_dict(sd: Dict[str, np.ndarray], prefix: str, n_layers: int) -> list:
+    """torch resblocks -> port blocks: ``in_proj_weight`` (3D, D) transposed
+    is exactly the fused (D, 3D) ``wqkv`` with columns [q | k | v]."""
+    blocks = []
+    for i in range(n_layers):
+        p = f"{prefix}.resblocks.{i}"
+        blocks.append({
+            "ln_1": _ln(sd[f"{p}.ln_1.weight"], sd[f"{p}.ln_1.bias"]),
+            "attn": {
+                "wqkv": _t(sd[f"{p}.attn.in_proj_weight"].T),
+                "bqkv": _t(sd[f"{p}.attn.in_proj_bias"]),
+                "wo": _t(sd[f"{p}.attn.out_proj.weight"].T),
+                "bo": _t(sd[f"{p}.attn.out_proj.bias"]),
+            },
+            "ln_2": _ln(sd[f"{p}.ln_2.weight"], sd[f"{p}.ln_2.bias"]),
+            "mlp": {
+                "w_fc": _t(sd[f"{p}.mlp.c_fc.weight"].T),
+                "b_fc": _t(sd[f"{p}.mlp.c_fc.bias"]),
+                "w_proj": _t(sd[f"{p}.mlp.c_proj.weight"].T),
+                "b_proj": _t(sd[f"{p}.mlp.c_proj.bias"]),
+            },
+        })
+    return blocks
+
+
+def convert_clip_state_dict(sd: Dict[str, Any], cfg: Optional[CLIPConfig] = None
+                            ) -> Tuple[CLIPConfig, Params]:
+    """OpenAI CLIP torch state dict -> (config, fp32 CPU parameters)."""
+    sd = {k: _np(v) for k, v in sd.items()
+          if k not in ("input_resolution", "context_length", "vocab_size")}
+    cfg = cfg or infer_config_from_state_dict(sd)
+    _require_vit(cfg)
+    patch = cfg.vision_patch_size
+    # OIHW (width, 3, P, P) -> (P, P, 3, width) -> (P*P*3, width): the
+    # (py, px, c) order of vit.patchify
+    pe = sd["visual.conv1.weight"].transpose(2, 3, 1, 0).reshape(patch * patch * 3, -1)
+    params: Params = {
+        "visual": {
+            "patch_embed": _t(pe),
+            "class_embedding": _t(sd["visual.class_embedding"]),
+            "positional_embedding": _t(sd["visual.positional_embedding"]),
+            "ln_pre": _ln(sd["visual.ln_pre.weight"], sd["visual.ln_pre.bias"]),
+            "blocks": _blocks_from_state_dict(sd, "visual.transformer", cfg.vision_layers),
+            "ln_post": _ln(sd["visual.ln_post.weight"], sd["visual.ln_post.bias"]),
+            "proj": _t(sd["visual.proj"]),
+        },
+        "text": {
+            "token_embedding": _t(sd["token_embedding.weight"]),
+            "positional_embedding": _t(sd["positional_embedding"]),
+            "blocks": _blocks_from_state_dict(sd, "transformer", cfg.transformer_layers),
+            "ln_final": _ln(sd["ln_final.weight"], sd["ln_final.bias"]),
+            "text_projection": _t(sd["text_projection"]),
+        },
+        "logit_scale": _t(sd["logit_scale"]),
+    }
+    return cfg, params
+
+
+_FP32_KEYS = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final")
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """Cast weights to a compute dtype, keeping LayerNorm affine and
+    ``logit_scale`` in fp32 (they are consumed in fp32 anyway)."""
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path) for v in tree]
+        keep = any(p in _FP32_KEYS for p in path) or path[-1:] == ("logit_scale",)
+        return tree.float() if keep else tree.to(dtype)
+
+    return walk(params, ())
+
+
+def to_device(params: Params, device: torch.device) -> Params:
+    if isinstance(params, dict):
+        return {k: to_device(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [to_device(v, device) for v in params]
+    return params.to(device)
+
+
+# -- weight files -----------------------------------------------------------
+
+_WEIGHT_ENV = "PROTOCLIP_WEIGHTS_DIR"
+_WEIGHT_DIRS = (os.path.expanduser("~/.cache/clip"),)
+_WEIGHT_FILENAMES = {
+    "RN50": "RN50.pt",
+    "RN101": "RN101.pt",
+    "RN50x4": "RN50x4.pt",
+    "RN50x16": "RN50x16.pt",
+    "ViT-B/32": "ViT-B-32.pt",
+    "ViT-B/16": "ViT-B-16.pt",
+    "ViT-L/14": "ViT-L-14.pt",
+}
+
+
+def find_weights(backbone: str) -> Optional[str]:
+    fname = _WEIGHT_FILENAMES.get(backbone, backbone)
+    dirs = ([os.environ[_WEIGHT_ENV]] if os.environ.get(_WEIGHT_ENV) else []) + list(_WEIGHT_DIRS)
+    for d in dirs:
+        cand = os.path.join(d, fname)
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+def _is_torchscript(path: str) -> bool:
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as zf:
+        return any(n.endswith("/constants.pkl") for n in zf.namelist())
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """An OpenAI release: a TorchScript archive's ``state_dict()``, or a
+    plain state dict read with ``torch.load(weights_only=True)``."""
+    if _is_torchscript(path):
+        sd = torch.jit.load(path, map_location="cpu").state_dict()
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path} did not contain a state dict")
+    # a DataParallel 'module.' prefix is stripped per key: extra buffers
+    # registered outside the wrapped module keep their names
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+
+
+def load_clip(backbone: str, weights_path: Optional[str] = None,
+              dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+              seed: int = 0) -> Tuple[CLIPConfig, Params]:
+    """Load a CLIP backbone onto ``device`` (default: the card).
+
+    Resolution order: explicit ``weights_path`` -> ``$PROTOCLIP_WEIGHTS_DIR``
+    / ``~/.cache/clip`` -> random initialization from the numpy ``seed``
+    (with a warning on stderr: classification then carries no semantics),
+    unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  There is no download.
+    """
+    dev = resolve_device(device)
+    path = weights_path or find_weights(backbone)
+    if path is not None:
+        cfg, params = convert_clip_state_dict(load_state_dict(path))
+        return cfg, to_device(cast_params(params, dtype), dev)
+
+    if os.environ.get("PROTOCLIP_STRICT_WEIGHTS", "0").lower() in ("1", "true", "on"):
+        raise FileNotFoundError(
+            f"no weights found for {backbone!r} and $PROTOCLIP_STRICT_WEIGHTS "
+            f"forbids random initialization (set ${_WEIGHT_ENV} or pass weights_path)"
+        )
+    if backbone not in BACKBONE_CONFIGS:
+        raise ValueError(
+            f"unknown backbone {backbone!r} and no weights file to infer an "
+            f"architecture from; known: {sorted(BACKBONE_CONFIGS)}"
+        )
+    cfg = BACKBONE_CONFIGS[backbone]
+    _require_vit(cfg)
+    print(
+        f"[protoclip_tpu_torch] WARNING: no weights found for {backbone!r} "
+        f"(set ${_WEIGHT_ENV}); using random initialization.",
+        file=sys.stderr,
+    )
+    params = init_clip_params(np.random.default_rng(seed), cfg)
+    return cfg, to_device(cast_params(params, dtype), dev)

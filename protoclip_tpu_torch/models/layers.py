@@ -1,0 +1,86 @@
+"""Shared transformer building blocks (counterpart of
+``protoclip_tpu/models/layers.py``).
+
+CLIP's residual attention block: pre-LN multi-head attention and a pre-LN
+MLP with QuickGELU.  Blocks are a list of per-layer dicts (the JAX package
+stacks them along a leading axis for ``lax.scan``); each layer's attention
+holds the fused ``wqkv`` (D, 3D) and ``bqkv`` (3D,) built once at load.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from protoclip_tpu_torch.ops.activations import quick_gelu
+from protoclip_tpu_torch.ops.attention import multi_head_attention
+from protoclip_tpu_torch.ops.kernels import fused_transformer_block
+from protoclip_tpu_torch.ops.layernorm import layer_norm
+
+Params = Dict[str, torch.Tensor]
+
+
+def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """4x-expansion MLP with QuickGELU, in the activation dtype."""
+    dtype = x.dtype
+    h = quick_gelu(x @ p["w_fc"].to(dtype) + p["b_fc"].to(dtype))
+    return h @ p["w_proj"].to(dtype) + p["b_proj"].to(dtype)
+
+
+def residual_block(x: torch.Tensor, p: Dict, n_head: int,
+                   mask: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
+    x = x + multi_head_attention(
+        layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"]), p["attn"], n_head, mask,
+        causal=causal,
+    )
+    return x + mlp(layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"]), p["mlp"])
+
+
+def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
+                mask: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
+    """Run the residual blocks in order.
+
+    Without an explicit mask every layer is one call of K2
+    (``ops.kernels.fused_transformer_block``): the CUDA kernel chain for
+    tensors on the card, its plain version on the CPU.  The kernels mask by
+    length, so L is not padded.  An explicit additive mask takes
+    :func:`residual_block`.
+    """
+    for block in blocks:
+        if mask is None:
+            x = fused_transformer_block(x, block, n_head, causal=causal)
+        else:
+            x = residual_block(x, block, n_head, mask, causal=causal)
+    return x
+
+
+def init_block_params(rng: np.random.Generator, n_layers: int, width: int,
+                      dtype: torch.dtype = torch.float32) -> List[Dict]:
+    """Random-init transformer blocks with CLIP's init scheme, from a numpy
+    generator; the QKV weights come out fused as ``wqkv``/``bqkv``."""
+    proj_std = (width ** -0.5) * ((2 * n_layers) ** -0.5)
+    attn_std = width ** -0.5
+    fc_std = (2 * width) ** -0.5
+
+    def norm(shape, std):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * std).to(dtype)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype)
+
+    def ln():
+        return {"scale": torch.ones(width, dtype=dtype), "bias": zeros(width)}
+
+    return [
+        {
+            "ln_1": ln(),
+            "attn": {"wqkv": norm((width, 3 * width), attn_std), "bqkv": zeros(3 * width),
+                     "wo": norm((width, width), proj_std), "bo": zeros(width)},
+            "ln_2": ln(),
+            "mlp": {"w_fc": norm((width, 4 * width), fc_std), "b_fc": zeros(4 * width),
+                    "w_proj": norm((4 * width, width), proj_std), "b_proj": zeros(width)},
+        }
+        for _ in range(n_layers)
+    ]
