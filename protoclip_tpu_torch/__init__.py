@@ -2,8 +2,9 @@
 NVIDIA H100.
 
 Mirrors the JAX package's layout (``ops``, ``models``, ``memory``,
-``core``, ``eval``, ``data``, ``tokenizer``).  The one kernel on the main
-path, the fused transformer block, is a chain of hand-written CUDA kernels
+``core``, ``eval``, ``data``, ``io``, ``cli``, ``tokenizer``).  The fused
+transformer block, in bf16 and in the W8A8 serving mode
+(``$PROTOCLIP_INT8``), is a chain of hand-written CUDA kernels
 (``csrc/``, bound in ``ops/kernels.py``); everything else is plain PyTorch.
 Entry points take an explicit ``device`` and default to the card.
 

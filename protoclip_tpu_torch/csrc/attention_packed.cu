@@ -1,8 +1,9 @@
-// attention_packed: multi-head attention over packed (B, L, D) q, k, v.
+// attention_packed: multi-head attention over strided (B, H, L, dh) views.
 //
 // Replaces: protoclip_tpu/ops/pallas_kernels.py::_attention_kernel_packed
-// (:145, K1) and the per-head attention loop of ::_block_kernel (:283-309,
-// K2).  Numerics as there: fp32 scores of (q * dh^-0.5) . k^T, keys with
+// (:145, K1), the per-head attention loops of ::_block_kernel (:283-309,
+// K2) and ::_block_kernel_int8 (:547-566, K3), and the head-major
+// ::_attention_kernel (:65, K4).  Numerics as there: fp32 scores of (q * dh^-0.5) . k^T, keys with
 // col >= length (and col > row when causal) masked to -1e30, softmax over
 // the whole row in fp32 (max, exp, divide by the sum), weights rounded to
 // v's dtype, PV accumulated in fp32 and rounded once.
@@ -20,9 +21,13 @@
 // go to a per-warp fp32 buffer, and each lane accumulates dh/32 output
 // columns over the keys.  Keys past the causal diagonal are skipped: their
 // weight is exactly 0 in the TPU kernel too.  Online softmax and tensor
-// cores are for a later change.  q, k, v are read through (pointer, row
-// stride), so the same kernel serves K1's three tensors and the column
-// slices of K2's fused (B, L, 3D) QKV buffer.
+// cores are for a later change.  q, k, v share one (batch, head, row)
+// stride triple and the output has its own, so one kernel serves K1's three
+// packed (B, L, D) tensors (strides L*D, dh, D), the column slices of K2's
+// and K3's fused (B, L, 3D) QKV buffer (L*3D, dh, 3D) and K4's head-major
+// (B, H, L, dh) tensors (H*L*dh, L*dh, dh).  K4 is not padded: the TPU
+// wrapper pads L to 8 for the sublanes only, and this kernel masks by
+// length.
 #include "common.cuh"
 
 namespace {
@@ -49,7 +54,8 @@ size_t smem_bytes(int L, int dh) {
 template <typename T>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, int ld, T* __restrict__ out, int ldo,
+                        const T* __restrict__ v, long long sb, long long sh, long long sr,
+                        T* __restrict__ out, long long osb, long long osh, long long osr,
                         int L, int dh, int length, int causal, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ks = dh + kv_pad<T>();
@@ -60,14 +66,13 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* qbuf = reinterpret_cast<float*>(smem + kv_bytes);  // [ATT_WARPS][dh]
   float* pbuf = qbuf + ATT_WARPS * dh;                       // [ATT_WARPS][lpad]
 
-  const int h = blockIdx.y;
-  const long base = (long)blockIdx.z * L;  // first row of this batch item
-  const int col0 = h * dh;
+  const long long base = blockIdx.z * sb + blockIdx.y * sh;  // this (batch, head)
+  const long long obase = blockIdx.z * osb + blockIdx.y * osh;
   const int kend = min(L, length);
 
   for (int idx = threadIdx.x; idx < kend * dh; idx += blockDim.x) {
     const int j = idx / dh, d = idx - j * dh;
-    const long g = (base + j) * ld + col0 + d;
+    const long long g = base + j * sr + d;
     Ks[j * ks + d] = k[g];
     Vs[j * ks + d] = v[g];
   }
@@ -79,7 +84,7 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r_end = min(L, (int)(blockIdx.x + 1) * ATT_QTILE);
 
   for (int r = blockIdx.x * ATT_QTILE + warp; r < r_end; r += ATT_WARPS) {
-    const T* qrow = q + (base + r) * ld + col0;
+    const T* qrow = q + base + r * sr;
     for (int d = lane; d < dh; d += 32) qw[d] = pck::to_f(qrow[d]) * scale;
     __syncwarp();
 
@@ -116,7 +121,7 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (d < dh) acc[t] = fmaf(p, pck::to_f(vr[d]), acc[t]);
       }
     }
-    T* orow = out + (base + r) * ldo + col0;
+    T* orow = out + obase + r * osr;
 #pragma unroll
     for (int t = 0; t < ATT_MAX_DH / 32; ++t) {
       const int d = lane + 32 * t;
@@ -127,30 +132,36 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, int ld, void* out, int ldo, int B,
-           int L, int H, int dh, int length, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const long long* st, void* out,
+           const long long* ost, int B, int L, int H, int dh, int length, int causal,
+           float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(L, dh);
   cudaError_t err = cudaFuncSetAttribute(attention_packed_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((L + ATT_QTILE - 1) / ATT_QTILE, H, B);
   attention_packed_kernel<T><<<grid, ATT_WARPS * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ld,
-      static_cast<T*>(out), ldo, L, dh, length, causal, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), st[0], st[1],
+      st[2], static_cast<T*>(out), ost[0], ost[1], ost[2], L, dh, length, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int attention_packed(int dtype, const void* q, const void* k, const void* v, int ld,
-                                void* out, int ldo, int B, int L, int H, int dh, int length,
-                                int causal, float scale, void* stream) {
+// (sb, sh, sr): the batch, head and row strides (elements) shared by q, k
+// and v; (osb, osh, osr) those of the output.  Element d of head h, row r,
+// batch b of q sits at q[b*sb + h*sh + r*sr + d].
+extern "C" int attention_packed(int dtype, const void* q, const void* k, const void* v,
+                                long long sb, long long sh, long long sr, void* out,
+                                long long osb, long long osh, long long osr, int B, int L, int H,
+                                int dh, int length, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dh > ATT_MAX_DH || length < 1) return (int)cudaErrorInvalidValue;
+  const long long st[3] = {sb, sh, sr}, ost[3] = {osb, osh, osr};
   if (dtype == PCK_BF16)
-    return launch<__nv_bfloat16>(q, k, v, ld, out, ldo, B, L, H, dh, length, causal, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, st, out, ost, B, L, H, dh, length, causal, scale, s);
   if (dtype == PCK_F32)
-    return launch<float>(q, k, v, ld, out, ldo, B, L, H, dh, length, causal, scale, s);
+    return launch<float>(q, k, v, st, out, ost, B, L, H, dh, length, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

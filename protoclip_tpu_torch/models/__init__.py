@@ -18,6 +18,7 @@ from protoclip_tpu_torch.models.clip import (
     init_clip_params,
     load_clip,
     params_from_jax,
+    quantize_for_serving,
 )
 
 __all__ = [
@@ -33,4 +34,5 @@ __all__ = [
     "init_clip_params",
     "load_clip",
     "params_from_jax",
+    "quantize_for_serving",
 ]

@@ -11,6 +11,10 @@ per-layer dicts whose attention carries the fused ``wqkv`` (D, 3D) and
 ``bqkv`` (3D,), built once here rather than on every call.  The compute
 dtype defaults to bfloat16, with LayerNorm affine and ``logit_scale`` kept
 in fp32.
+
+The W8A8 serving mode (``$PROTOCLIP_INT8``) adds, beside each tower's
+``blocks``, a ``blocks_q`` list of int8 layers made once at load
+(:func:`quantize_for_serving`).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import torch
 from protoclip_tpu_torch.device import DeviceLike, resolve_device
 from protoclip_tpu_torch.models import text as _text
 from protoclip_tpu_torch.models import vit as _vit
+from protoclip_tpu_torch.ops.kernels import int8_enabled, quantize_block
 from protoclip_tpu_torch.ops.proto import l2_normalize
 
 Params = Dict[str, Any]
@@ -157,15 +162,34 @@ def _blocks_from_jax(stacked: Dict) -> list:
     ]
 
 
+def _qblocks_from_jax(stacked: Dict) -> list:
+    """A stacked JAX ``blocks_q`` tree (``quantize_stacked_blocks``: int8
+    weights ``(n_layers, in, out)``, scales ``(n_layers, 1, out)``) -> the
+    port's int8 layers (:func:`ops.kernels.quantize_block`): weights
+    ``(out, in)``, scales and biases flat."""
+    def layer(i):
+        q = {}
+        for key, value in stacked.items():
+            a = np.asarray(value[i])
+            if key.startswith("w"):
+                q[key] = torch.from_numpy(np.ascontiguousarray(a.T)).to(torch.int8)
+            else:
+                q[key] = _t(a.reshape(-1))
+        return q
+
+    return [layer(i) for i in range(len(stacked["wqkv"]))]
+
+
 def params_from_jax(np_params: Params, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
                     device: DeviceLike = None) -> Params:
     """The JAX package's CLIP parameters, as numpy arrays, -> the port's.
 
-    ``np_params`` is ``init_clip_params`` or ``convert_clip_state_dict``
-    output of ``protoclip_tpu.models.clip`` after
+    ``np_params`` is ``init_clip_params``, ``convert_clip_state_dict`` or
+    ``quantize_for_serving`` output of ``protoclip_tpu.models.clip`` after
     ``jax.tree_util.tree_map(np.asarray, ...)``.  Block leaves are
-    un-stacked, ``wqkv``/``bqkv`` built, and the result cast as
-    :func:`cast_params` does.
+    un-stacked, ``wqkv``/``bqkv`` built, a tower's ``blocks_q`` carried
+    into the port's int8 layout, and the result cast as :func:`cast_params`
+    does.
     """
     _require_vit(cfg)
     vis, txt = np_params["visual"], np_params["text"]
@@ -188,6 +212,9 @@ def params_from_jax(np_params: Params, cfg: CLIPConfig, dtype: torch.dtype = tor
         },
         "logit_scale": _t(np_params["logit_scale"]),
     }
+    for tower, src in (("visual", vis), ("text", txt)):
+        if "blocks_q" in src:
+            params[tower]["blocks_q"] = _qblocks_from_jax(src["blocks_q"])
     return to_device(cast_params(params, dtype), resolve_device(device))
 
 
@@ -296,17 +323,40 @@ _FP32_KEYS = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final")
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Cast weights to a compute dtype, keeping LayerNorm affine and
-    ``logit_scale`` in fp32 (they are consumed in fp32 anyway)."""
+    ``logit_scale`` in fp32 (they are consumed in fp32 anyway).  The int8
+    layers of ``blocks_q`` pass through untouched: their int8 values and
+    fp32 scales are exact as they are."""
 
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, path) for v in tree]
+        if "blocks_q" in path:
+            return tree
         keep = any(p in _FP32_KEYS for p in path) or path[-1:] == ("logit_scale",)
         return tree.float() if keep else tree.to(dtype)
 
     return walk(params, ())
+
+
+def quantize_for_serving(params: Params) -> Params:
+    """Attach a ``blocks_q`` list of int8 layers (:func:`ops.kernels.
+    quantize_block`) beside each tower's ``blocks``, as
+    ``protoclip_tpu.models.clip.quantize_for_serving`` (``clip.py:353-373``)
+    does.  The towers pick it up when ``$PROTOCLIP_INT8`` is on, so the
+    weights are quantized once, here, and not on every encode."""
+    out = dict(params)
+    for tower in ("visual", "text"):
+        sub = params.get(tower)
+        if isinstance(sub, dict) and "blocks" in sub:
+            out[tower] = {**sub, "blocks_q": [quantize_block(b) for b in sub["blocks"]]}
+    return out
+
+
+def _maybe_quantize(params: Params) -> Params:
+    """The serving mode's int8 layers, made at load when it is on."""
+    return quantize_for_serving(params) if int8_enabled() else params
 
 
 def to_device(params: Params, device: torch.device) -> Params:
@@ -372,12 +422,14 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
     / ``~/.cache/clip`` -> random initialization from the numpy ``seed``
     (with a warning on stderr: classification then carries no semantics),
     unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  There is no download.
+    With ``$PROTOCLIP_INT8`` on, the transformer stacks are quantized once
+    here, from the weights in ``dtype`` (:func:`quantize_for_serving`).
     """
     dev = resolve_device(device)
     path = weights_path or find_weights(backbone)
     if path is not None:
         cfg, params = convert_clip_state_dict(load_state_dict(path))
-        return cfg, to_device(cast_params(params, dtype), dev)
+        return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev))
 
     if os.environ.get("PROTOCLIP_STRICT_WEIGHTS", "0").lower() in ("1", "true", "on"):
         raise FileNotFoundError(
@@ -397,4 +449,4 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
         file=sys.stderr,
     )
     params = init_clip_params(np.random.default_rng(seed), cfg)
-    return cfg, to_device(cast_params(params, dtype), dev)
+    return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev))

@@ -16,7 +16,12 @@ import torch
 
 from protoclip_tpu_torch.ops.activations import quick_gelu
 from protoclip_tpu_torch.ops.attention import multi_head_attention
-from protoclip_tpu_torch.ops.kernels import fused_transformer_block
+from protoclip_tpu_torch.ops.kernels import (
+    fused_transformer_block,
+    fused_transformer_block_int8,
+    int8_enabled,
+    quantize_block,
+)
 from protoclip_tpu_torch.ops.layernorm import layer_norm
 
 Params = Dict[str, torch.Tensor]
@@ -39,7 +44,8 @@ def residual_block(x: torch.Tensor, p: Dict, n_head: int,
 
 
 def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
-                mask: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, causal: bool = False,
+                qblocks: Optional[List[Dict]] = None) -> torch.Tensor:
     """Run the residual blocks in order.
 
     Without an explicit mask every layer is one call of K2
@@ -47,7 +53,19 @@ def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
     tensors on the card, its plain version on the CPU.  The kernels mask by
     length, so L is not padded.  An explicit additive mask takes
     :func:`residual_block`.
+
+    With ``$PROTOCLIP_INT8`` on (and no mask) every layer is one call of
+    K3, the W8A8 block (``ops.kernels.fused_transformer_block_int8``), on
+    ``qblocks``: the int8 layers that ``models.clip.quantize_for_serving``
+    made at load.  Without them the blocks are quantized here, once per
+    call.
     """
+    if mask is None and int8_enabled():
+        if qblocks is None:
+            qblocks = [quantize_block(block) for block in blocks]
+        for qblock in qblocks:
+            x = fused_transformer_block_int8(x, qblock, n_head, causal=causal)
+        return x
     for block in blocks:
         if mask is None:
             x = fused_transformer_block(x, block, n_head, causal=causal)

@@ -20,7 +20,8 @@ def apply_text(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     dtype = params["token_embedding"].dtype
     tokens = tokens.long()
     x = params["token_embedding"][tokens] + params["positional_embedding"].to(dtype)
-    x = transformer(x, params["blocks"], cfg.transformer_heads, causal=True)
+    x = transformer(x, params["blocks"], cfg.transformer_heads, causal=True,
+                    qblocks=params.get("blocks_q"))
     x = layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
     eot = tokens.argmax(dim=-1)
     feats = x[torch.arange(x.shape[0], device=x.device), eot]

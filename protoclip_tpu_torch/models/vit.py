@@ -31,7 +31,7 @@ def apply_vit(params: Dict, images: torch.Tensor, cfg) -> torch.Tensor:
     cls = params["class_embedding"].to(dtype).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1) + params["positional_embedding"].to(dtype)
     x = layer_norm(x, params["ln_pre"]["scale"], params["ln_pre"]["bias"])
-    x = transformer(x, params["blocks"], cfg.vision_heads)
+    x = transformer(x, params["blocks"], cfg.vision_heads, qblocks=params.get("blocks_q"))
     cls_out = layer_norm(x[:, 0, :], params["ln_post"]["scale"], params["ln_post"]["bias"])
     return cls_out @ params["proj"].to(dtype)
 

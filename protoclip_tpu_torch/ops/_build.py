@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-c_int, c_ptr, c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+c_int, c_ptr, c_float, c_i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ctypes.c_longlong
 # C signatures of csrc/*.cu: every pointer and the stream as c_void_p
 _SIGNATURES = {
     "layernorm_rows": (c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_float, c_ptr]),
@@ -37,8 +37,15 @@ _SIGNATURES = {
     ),
     "attention_packed": (
         c_int,
-        [c_int, c_ptr, c_ptr, c_ptr, c_int, c_ptr, c_int,
+        [c_int, c_ptr, c_ptr, c_ptr, c_i64, c_i64, c_i64, c_ptr, c_i64, c_i64, c_i64,
          c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_ptr],
+    ),
+    "quant_rows": (
+        c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_float, c_ptr],
+    ),
+    "gemm_int8_epilogue": (
+        c_int,
+        [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_ptr],
     ),
     "attention_packed_smem_bytes": (ctypes.c_size_t, [c_int, c_int, c_int]),
     "protoclip_error_string": (ctypes.c_char_p, [c_int]),

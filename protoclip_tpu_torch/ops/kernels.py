@@ -11,7 +11,17 @@ call with the layer's weights resident in a 100 MB VMEM.  A Hopper SM has
     -> gemm_bias_epilogue(out-proj + residual) -> layernorm_rows
     -> gemm_bias_epilogue(fc + QuickGELU) -> gemm_bias_epilogue(proj + residual)
 
-K1 (``fused_attention_packed``) is a second entry to ``attention_packed``.
+K3 (``fused_transformer_block_int8``, the W8A8 serving block behind
+``$PROTOCLIP_INT8``) is the same chain on int8 tensor cores, with the
+activations quantized per row at four points:
+
+    layernorm_quant_rows -> gemm_int8_epilogue(QKV) -> attention_packed
+    -> quant_rows -> gemm_int8_epilogue(out-proj + residual)
+    -> layernorm_quant_rows -> gemm_int8_epilogue(fc + QuickGELU, fp32)
+    -> quant_rows -> gemm_int8_epilogue(proj + residual)
+
+K1 (``fused_attention_packed``) and K4 (``fused_attention``, head-major)
+are two more entries to ``attention_packed``.
 
 Every wrapper takes its plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  The plain
@@ -26,6 +36,7 @@ kernel is held to on the card.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -34,6 +45,8 @@ from protoclip_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # PCK_F32 / PCK_BF16 in csrc/common.cuh
 _EPILOGUES = {"bias": 0, "bias_residual": 1, "bias_gelu": 2}
+_INT8_EPILOGUES = {"dequant_bias": 0, "dequant_bias_residual": 1, "dequant_bias_gelu": 2}
+QUANT_FLOOR = 1e-6  # smallest amax a scale is taken from (pallas_kernels.py:465, :503)
 SMEM_PER_BLOCK = 232_448  # opt-in dynamic shared memory of one H100 block
 MAX_HEAD_DIM = 128  # ATT_MAX_DH in csrc/attention_packed.cu
 LN_EPS = 1e-5
@@ -46,6 +59,11 @@ LAUNCHES: Dict[str, int] = {
     "attention_packed": 0,
     "fused_transformer_block": 0,
     "fused_attention_packed": 0,
+    "layernorm_quant_rows": 0,
+    "quant_rows": 0,
+    "gemm_int8_epilogue": 0,
+    "fused_transformer_block_int8": 0,
+    "fused_attention": 0,
 }
 
 
@@ -63,9 +81,15 @@ def _stream() -> int:
 
 
 def _require_cuda(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
+    """Raise unless ``dtype`` is an activation dtype of the kernels and every
+    tensor is a contiguous CUDA tensor of it."""
     if dtype not in _DTYPES:
         raise TypeError(f"{name}: activation dtype {dtype} not supported (float32 or bfloat16)")
+    _require_on_card(name, dtype, **tensors)
+
+
+def _require_on_card(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of ``dtype``."""
     for arg, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name}: {arg} is on {t.device}; all tensors must be on the card")
@@ -78,15 +102,20 @@ def _require_cuda(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> Non
 # -- layernorm_rows ------------------------------------------------------------
 
 
-def layernorm_rows_plain(x, scale, bias, eps: float = LN_EPS):
-    """LayerNorm over the last axis: fp32 statistics and affine, one cast
-    back to ``x``'s dtype (``pallas_kernels.py:263-272``)."""
+def _layernorm_f32(x, scale, bias, eps: float):
+    """LayerNorm over the last axis with fp32 statistics and affine, in fp32."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     c = xf - mean
     var = (c * c).mean(dim=-1, keepdim=True)
     normed = c * torch.rsqrt(var + eps)
-    return (normed * scale.float() + bias.float()).to(x.dtype)
+    return normed * scale.float() + bias.float()
+
+
+def layernorm_rows_plain(x, scale, bias, eps: float = LN_EPS):
+    """LayerNorm over the last axis: fp32 statistics and affine, one cast
+    back to ``x``'s dtype (``pallas_kernels.py:263-272``)."""
+    return _layernorm_f32(x, scale, bias, eps).to(x.dtype)
 
 
 def layernorm_rows(x, scale, bias, eps: float = LN_EPS):
@@ -176,20 +205,15 @@ def gemm_bias_epilogue(a, w, bias, epilogue: str, residual=None):
 # -- attention_packed ----------------------------------------------------------------
 
 
-def fused_attention_packed_plain(q, k, v, n_head: int, causal: bool = False,
-                                 length: Optional[int] = None):
-    """Multi-head attention over packed ``(B, L, D)`` q, k, v with the TPU
-    kernel's numerics (``pallas_kernels.py:145-183``).  Keys at index >=
-    ``length`` (default L) are masked, and col > row when causal."""
-    b, l, d = q.shape
-    dh = d // n_head
+def fused_attention_plain(q, k, v, causal: bool = False, length: Optional[int] = None):
+    """Attention over head-major ``(B, H, L, dh)`` q, k, v with the TPU
+    kernels' numerics (``pallas_kernels.py:65-96``, ``:160-183``): fp32
+    scores of ``(q * dh^-0.5) . k^T``, keys at index >= ``length`` (default
+    L) masked, and col > row when causal, softmax in fp32, the weights
+    rounded to v's dtype, PV accumulated in fp32 and rounded once."""
+    l, dh = q.shape[-2], q.shape[-1]
     length = l if length is None else length
-    dtype = v.dtype
-
-    def heads(t):
-        return t.reshape(b, l, n_head, dh).transpose(1, 2)
-
-    s = torch.matmul(heads(q).float() * dh ** -0.5, heads(k).float().transpose(-1, -2))
+    s = torch.matmul(q.float() * dh ** -0.5, k.float().transpose(-1, -2))
     col = torch.arange(l, device=q.device)
     mask = (col >= length)[None, :].expand(l, l)
     if causal:
@@ -197,16 +221,53 @@ def fused_attention_packed_plain(q, k, v, n_head: int, causal: bool = False,
     s = s.masked_fill(mask, -1e30)
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
-    w = (e / e.sum(dim=-1, keepdim=True)).to(dtype)
-    o = torch.matmul(w.float(), heads(v).float()).to(dtype)
+    w = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.matmul(w.float(), v.float()).to(v.dtype)
+
+
+def fused_attention_packed_plain(q, k, v, n_head: int, causal: bool = False,
+                                 length: Optional[int] = None):
+    """Multi-head attention over packed ``(B, L, D)`` q, k, v with the TPU
+    kernel's numerics (``pallas_kernels.py:145-183``): the heads are column
+    blocks of D, each run through :func:`fused_attention_plain`."""
+    b, l, d = q.shape
+    dh = d // n_head
+
+    def heads(t):
+        return t.reshape(b, l, n_head, dh).transpose(1, 2)
+
+    o = fused_attention_plain(heads(q), heads(k), heads(v), causal, length)
     return o.transpose(1, 2).reshape(b, l, d)
+
+
+def _launch_attention(q, k, v, strides, out, out_strides, b: int, l: int, n_head: int,
+                      dh: int, length: int, causal: bool) -> None:
+    """Launch ``csrc/attention_packed.cu`` on q, k, v sharing the (batch,
+    head, row) element ``strides``, into ``out`` with ``out_strides``."""
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"attention_packed: head dim {dh} > {MAX_HEAD_DIM}")
+    if b > 65535:
+        raise ValueError(f"attention_packed: batch {b} > 65535 (grid z limit)")
+    lib = _build.load_library()
+    dtype = _DTYPES[q.dtype]
+    smem = lib.attention_packed_smem_bytes(dtype, l, dh)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"attention_packed: L={l}, dh={dh} in {q.dtype} needs {smem} B of "
+                         f"shared memory > {SMEM_PER_BLOCK}")
+    _build.check(
+        lib.attention_packed(
+            dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, out.data_ptr(),
+            *out_strides, b, l, n_head, dh, length, int(causal), dh ** -0.5, _stream(),
+        ),
+        "attention_packed",
+    )
 
 
 def attention_packed(q, k, v, n_head: int, causal: bool = False,
                      length: Optional[int] = None):
     """The attention kernel on ``(B, L, D)`` views that share one row
     stride: separate contiguous tensors (K1) or column slices of a fused
-    ``(B, L, 3D)`` QKV buffer (K2).  Returns a contiguous ``(B, L, D)``."""
+    ``(B, L, 3D)`` QKV buffer (K2, K3).  Returns a contiguous ``(B, L, D)``."""
     if not q.is_cuda:
         return fused_attention_packed_plain(q, k, v, n_head, causal, length)
     b, l, d = q.shape
@@ -216,10 +277,6 @@ def attention_packed(q, k, v, n_head: int, causal: bool = False,
     length = l if length is None else length
     if not 1 <= length <= l:
         raise ValueError(f"length={length} must lie in [1, {l}]")
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"attention_packed: head dim {dh} > {MAX_HEAD_DIM}")
-    if b > 65535:
-        raise ValueError(f"attention_packed: batch {b} > 65535 (grid z limit)")
     dtype = q.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"attention_packed: dtype {dtype} not supported")
@@ -230,19 +287,9 @@ def attention_packed(q, k, v, n_head: int, causal: bool = False,
         if t.stride() != (l * ld, ld, 1):
             raise ValueError(f"attention_packed: {name} strides {t.stride()} are not "
                              f"(L*ld, ld, 1) with the shared row stride ld={ld}")
-    lib = _build.load_library()
-    smem = lib.attention_packed_smem_bytes(_DTYPES[dtype], l, dh)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"attention_packed: L={l}, dh={dh} in {dtype} needs {smem} B of "
-                         f"shared memory > {SMEM_PER_BLOCK}")
     out = torch.empty(b, l, d, dtype=dtype, device=q.device)
-    _build.check(
-        lib.attention_packed(
-            _DTYPES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
-            out.data_ptr(), d, b, l, n_head, dh, length, int(causal), dh ** -0.5, _stream(),
-        ),
-        "attention_packed",
-    )
+    _launch_attention(q, k, v, (l * ld, dh, ld), out, (l * d, dh, d), b, l, n_head, dh,
+                      length, causal)
     LAUNCHES["attention_packed"] += 1
     return out
 
@@ -254,6 +301,25 @@ def fused_attention_packed(q, k, v, n_head: int, causal: bool = False):
         return fused_attention_packed_plain(q, k, v, n_head, causal)
     out = attention_packed(q, k, v, n_head, causal)
     LAUNCHES["fused_attention_packed"] += 1
+    return out
+
+
+def fused_attention(q, k, v, causal: bool = False):
+    """K4: fused attention over head-major ``(B, H, L, dh)`` q, k, v
+    (``pallas_kernels.py:121``), the same kernel read through head-major
+    strides.  No padding: the kernel masks by length where the TPU wrapper
+    pads L to a multiple of 8."""
+    if not q.is_cuda:
+        return fused_attention_plain(q, k, v, causal)
+    b, h, l, dh = q.shape
+    _require_cuda("fused_attention", q.dtype, q=q, k=k, v=v)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"fused_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} differ")
+    out = torch.empty_like(q)
+    strides = (h * l * dh, l * dh, dh)
+    _launch_attention(q, k, v, strides, out, strides, b, l, h, dh, l, causal)
+    LAUNCHES["fused_attention"] += 1
     return out
 
 
@@ -324,4 +390,243 @@ def fused_transformer_block(x, block: dict, n_head: int, causal: bool = False,
         layernorm_rows, gemm_bias_epilogue, attention_packed,
     )
     LAUNCHES["fused_transformer_block"] += 1
+    return out
+
+
+# -- K3: the W8A8 serving block ------------------------------------------------------
+
+
+def int8_enabled() -> bool:
+    """Run the transformer blocks in W8A8 (K3)?  Opt-in with
+    ``$PROTOCLIP_INT8``, as ``pallas_kernels.py:455-457``."""
+    return os.environ.get("PROTOCLIP_INT8", "0").lower() in ("1", "true", "on")
+
+
+def _div127(t):
+    """``t / 127`` as an IEEE division on every device: divided by a Python
+    number, PyTorch on the card multiplies by the reciprocal instead, which
+    may be an ulp off."""
+    return t / torch.tensor(127.0, device=t.device)
+
+
+def _round_to_int8(t):
+    """Round half to even (``jnp.round``) and clip to +-127."""
+    return torch.round(t).clamp_(-127, 127).to(torch.int8)
+
+
+def quantize_cols(w):
+    """Per-output-channel symmetric int8 of an ``(in, out)`` weight, or of
+    a stack ``(..., in, out)`` -> (int8 values in the same layout, fp32
+    scales ``(..., 1, out)``), as ``pallas_kernels.py:460-468``."""
+    w32 = w.float()
+    scale = _div127(w32.abs().amax(dim=-2, keepdim=True).clamp_min(QUANT_FLOOR))
+    return _round_to_int8(w32 / scale), scale
+
+
+def quantize_block(block: dict) -> dict:
+    """One layer's weights for K3, as one layer of
+    ``quantize_stacked_blocks`` (``pallas_kernels.py:471-497``): the fused
+    QKV, out, fc and proj matrices in int8 with per-output-column fp32
+    scales ``(out,)``; biases and LayerNorm parameters in fp32.  Each int8
+    matrix is stored ``(out, in)``: K-major, the layout the int8 GEMM
+    kernel reads, transposed once here."""
+    attn, mlp = block["attn"], block["mlp"]
+    qblock = {}
+    for name, w in (("qkv", attn["wqkv"]), ("o", attn["wo"]),
+                    ("fc", mlp["w_fc"]), ("proj", mlp["w_proj"])):
+        q, scale = quantize_cols(w)
+        qblock["w" + name] = q.t().contiguous()
+        qblock["s" + name] = scale.reshape(-1)
+    qblock.update(
+        bqkv=attn["bqkv"].float(), bo=attn["bo"].float(),
+        bfc=mlp["b_fc"].float(), bproj=mlp["b_proj"].float(),
+        ln1s=block["ln_1"]["scale"].float(), ln1b=block["ln_1"]["bias"].float(),
+        ln2s=block["ln_2"]["scale"].float(), ln2b=block["ln_2"]["bias"].float(),
+    )
+    return qblock
+
+
+# -- quant_rows ------------------------------------------------------------------------
+
+
+def quant_rows_plain(x):
+    """Per-row symmetric int8 (``pallas_kernels.py:500-505``): ``(..., W)``
+    in any float dtype -> (int8 ``(..., W)``, fp32 scales ``(..., 1)``),
+    scale = max(amax, 1e-6) / 127."""
+    xf = x.float()
+    scale = _div127(xf.abs().amax(dim=-1, keepdim=True).clamp_min(QUANT_FLOOR))
+    return _round_to_int8(xf / scale), scale
+
+
+def layernorm_quant_rows_plain(x, scale, bias, eps: float = LN_EPS):
+    """K3's LayerNorm (``pallas_kernels.py:527-534``), left in fp32, then
+    quantized per row: it is not rounded to the activation dtype as in K2."""
+    return quant_rows_plain(_layernorm_f32(x, scale, bias, eps))
+
+
+def _launch_quant_rows(name: str, x, scale, bias, eps: float):
+    w = x.shape[-1]
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty(*x.shape[:-1], 1, dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    _build.check(
+        lib.quant_rows(
+            _DTYPES[x.dtype], x.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            q.data_ptr(), s.data_ptr(), x.numel() // w, w, eps, _stream(),
+        ),
+        name,
+    )
+    LAUNCHES[name] += 1
+    return q, s
+
+
+def quant_rows(x):
+    """``x`` (..., W) in bf16 or fp32 -> (int8 (..., W), fp32 (..., 1)):
+    ``csrc/quant_rows.cu`` in mode (b)."""
+    if not x.is_cuda:
+        return quant_rows_plain(x)
+    _require_cuda("quant_rows", x.dtype, x=x)
+    return _launch_quant_rows("quant_rows", x, None, None, 0.0)
+
+
+def layernorm_quant_rows(x, scale, bias, eps: float = LN_EPS):
+    """``x`` (..., D) in the activation dtype, ``scale``/``bias`` (D,) fp32
+    -> the quantized fp32 LayerNorm: ``csrc/quant_rows.cu`` in mode (a)."""
+    if not x.is_cuda:
+        return layernorm_quant_rows_plain(x, scale, bias, eps)
+    d = x.shape[-1]
+    _require_cuda("layernorm_quant_rows", x.dtype, x=x)
+    _require_on_card("layernorm_quant_rows", torch.float32, scale=scale, bias=bias)
+    if scale.shape != (d,) or bias.shape != (d,):
+        raise ValueError(f"layernorm_quant_rows: scale/bias must be ({d},)")
+    return _launch_quant_rows("layernorm_quant_rows", x, scale, bias, eps)
+
+
+# -- gemm_int8_epilogue -------------------------------------------------------------------
+
+
+def int8_matmul_plain(x_q, x_s, w_q, w_s):
+    """``(..., in)`` int8 . ``(in, out)`` int8 -> fp32, dequantized as
+    ``f32(acc) * x_s * w_s`` (``pallas_kernels.py:508-513``).  The sum runs
+    in float64, exact below 2**53 (fp32 is not: 3072 * 127**2 > 2**24), and
+    is rounded to fp32 once, as int32 -> fp32 does."""
+    acc = torch.matmul(x_q.double(), w_q.double()).float()
+    return acc * x_s * w_s
+
+
+def gemm_int8_epilogue_plain(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: torch.dtype,
+                             residual=None):
+    """``a_q (..., K)`` int8 with row scales ``a_s (..., 1)``, times ``w_q``
+    stored ``(N, K)`` with column scales ``w_s (N,)``, plus the fp32 bias,
+    with K3's epilogues (T rounds to the activation ``dtype``):
+
+    - ``dequant_bias``:          T(y)                           (QKV)
+    - ``dequant_bias_residual``: T(f32(residual) + f32(T(y)))   (out-proj, proj)
+    - ``dequant_bias_gelu``:     y * sigmoid(1.702 y) in fp32   (fc)
+
+    where ``y = f32(acc) * a_s * w_s + bias`` in fp32.
+    """
+    y = int8_matmul_plain(a_q, a_s, w_q.t(), w_s) + bias
+    if epilogue == "dequant_bias_gelu":
+        return y * torch.sigmoid(1.702 * y)
+    if epilogue == "dequant_bias":
+        return y.to(dtype)
+    if epilogue == "dequant_bias_residual":
+        return (residual.float() + y.to(dtype).float()).to(dtype)
+    raise ValueError(f"unknown epilogue {epilogue!r}; use {sorted(_INT8_EPILOGUES)}")
+
+
+def gemm_int8_epilogue(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: torch.dtype,
+                       residual=None):
+    """``csrc/gemm_int8_epilogue.cu``: ``a_q`` (..., K) int8, ``a_s`` its
+    fp32 row scales (..., 1), ``w_q`` (N, K) int8, ``w_s``/``bias`` (N,)
+    fp32, ``residual`` (..., N) in ``dtype`` for ``dequant_bias_residual``.
+    The output is in ``dtype``, or fp32 for ``dequant_bias_gelu``."""
+    if epilogue not in _INT8_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; use {sorted(_INT8_EPILOGUES)}")
+    if (residual is None) != (epilogue != "dequant_bias_residual"):
+        raise ValueError("residual is given exactly for the dequant_bias_residual epilogue")
+    if not a_q.is_cuda:
+        return gemm_int8_epilogue_plain(a_q, a_s, w_q, w_s, bias, epilogue, dtype, residual)
+    name = "gemm_int8_epilogue"
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name}: activation dtype {dtype} not supported (float32 or bfloat16)")
+    n, k = w_q.shape
+    _require_on_card(name, torch.int8, a_q=a_q, w_q=w_q)
+    _require_on_card(name, torch.float32, a_s=a_s, w_s=w_s, bias=bias)
+    m = a_q.numel() // k
+    if a_q.shape[-1] != k or a_s.numel() != m or w_s.shape != (n,) or bias.shape != (n,):
+        raise ValueError(f"{name}: a_q {tuple(a_q.shape)}, a_s {tuple(a_s.shape)}, w_q "
+                         f"{tuple(w_q.shape)}, w_s {tuple(w_s.shape)}, bias {tuple(bias.shape)} "
+                         f"do not chain")
+    out_dtype = torch.float32 if epilogue == "dequant_bias_gelu" else dtype
+    out = torch.empty(*a_q.shape[:-1], n, dtype=out_dtype, device=a_q.device)
+    if residual is not None:
+        _require_on_card(name, dtype, residual=residual)
+        if residual.shape != out.shape:
+            raise ValueError(f"{name}: residual {tuple(residual.shape)} != output "
+                             f"{tuple(out.shape)}")
+    lib = _build.load_library()
+    _build.check(
+        lib.gemm_int8_epilogue(
+            _DTYPES[dtype], a_q.data_ptr(), a_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+            bias.data_ptr(), None if residual is None else residual.data_ptr(),
+            out.data_ptr(), m, n, k, _INT8_EPILOGUES[epilogue], _stream(),
+        ),
+        name,
+    )
+    LAUNCHES[name] += 1
+    return out
+
+
+# -- K3: the whole W8A8 block ------------------------------------------------------------
+
+
+def _int8_block_chain(x, q, n_head, causal, length, ln_quant, quant, gemm, attention):
+    """The cast points of ``_block_kernel_int8`` (``pallas_kernels.py:
+    516-585``).  The fc output, the fp32 QuickGELU hidden, is the chain's
+    largest intermediate (M x 4D x 4 bytes, ~620 MB for a ViT-B/16 image
+    block at B=256); it is allocated per call."""
+    d, dtype = x.shape[-1], x.dtype
+    qkv = gemm(*ln_quant(x, q["ln1s"], q["ln1b"]), q["wqkv"], q["sqkv"], q["bqkv"],
+               "dequant_bias", dtype)
+    attn = attention(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], n_head, causal, length)
+    x = gemm(*quant(attn), q["wo"], q["so"], q["bo"], "dequant_bias_residual", dtype,
+             residual=x)
+    hid = gemm(*ln_quant(x, q["ln2s"], q["ln2b"]), q["wfc"], q["sfc"], q["bfc"],
+               "dequant_bias_gelu", dtype)
+    return gemm(*quant(hid), q["wproj"], q["sproj"], q["bproj"], "dequant_bias_residual", dtype,
+                residual=x)
+
+
+def fused_transformer_block_int8_plain(x, qblock: dict, n_head: int, causal: bool = False,
+                                       length: Optional[int] = None):
+    """K3's plain version, with the TPU kernel's cast points."""
+    _check_block_input(x, n_head, length)
+    return _int8_block_chain(
+        x, qblock, n_head, causal, length, layernorm_quant_rows_plain, quant_rows_plain,
+        gemm_int8_epilogue_plain, fused_attention_packed_plain,
+    )
+
+
+def fused_transformer_block_int8(x, qblock: dict, n_head: int, causal: bool = False,
+                                 length: Optional[int] = None):
+    """K3: one CLIP residual block in W8A8 (``pallas_kernels.py:640``).
+
+    ``x`` (B, L, D) in bf16 or fp32; ``qblock`` is one layer from
+    :func:`quantize_block`.  The attention core runs in the activation
+    dtype on ``attention_packed``, as K2's.  Same ``length=`` contract as
+    :func:`fused_transformer_block`; L needs no padding.
+    """
+    if not x.is_cuda:
+        return fused_transformer_block_int8_plain(x, qblock, n_head, causal, length)
+    _check_block_input(x, n_head, length)
+    _require_cuda("fused_transformer_block_int8", x.dtype, x=x)
+    out = _int8_block_chain(
+        x, qblock, n_head, causal, length, layernorm_quant_rows, quant_rows,
+        gemm_int8_epilogue, attention_packed,
+    )
+    LAUNCHES["fused_transformer_block_int8"] += 1
     return out

@@ -68,7 +68,77 @@ def test_cuda_kernels_match_plain(cuda_device, dtype, L, D, H, causal):
     assert kernels.launch_counts() == {
         "layernorm_rows": 4, "gemm_bias_epilogue": 8, "attention_packed": 3,
         "fused_transformer_block": 2, "fused_attention_packed": 1,
+        "layernorm_quant_rows": 0, "quant_rows": 0, "gemm_int8_epilogue": 0,
+        "fused_transformer_block_int8": 0, "fused_attention": 0,
     }
+
+
+# K3's bars against its plain version: a quantization step is amax/127, and
+# LayerNorm and attention sum in another order than the plain version, so an
+# int8 code on a rounding tie may move one step (K2's fp32 bar does not apply)
+INT8_BARS = {torch.bfloat16: (2e-2, 0.9999), torch.float32: (1e-2, 0.99999)}
+
+
+def _assert_int8_block_close(out, ref, dtype):
+    torch.cuda.synchronize()
+    out, ref = out.double().flatten(), ref.double().flatten()
+    rel_bar, cos_bar = INT8_BARS[dtype]
+    assert float((out - ref).abs().max()) / float(ref.abs().max()) < rel_bar
+    assert float(out @ ref / (out.norm() * ref.norm())) > cos_bar
+
+
+def _assert_ln_quant_close(got, want):
+    """LayerNorm statistics sum in another order: codes equal in >= 99.9%,
+    never more than one step apart, scales within 1e-6 relative."""
+    (q, s), (rq, rs) = got, want
+    step = (q.int() - rq.int()).abs()
+    assert int(step.max()) <= 1 and float((step == 0).float().mean()) >= 0.999
+    assert float(((s - rs).abs() / rs).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("L,D,H,causal", [(197, 768, 12, False), (77, 512, 8, True),
+                                          (50, 128, 2, False), (13, 64, 1, True)])
+def test_cuda_int8_kernels_match_plain(cuda_device, dtype, L, D, H, causal):
+    blk = _block(D, dtype, cuda_device)
+    q = kernels.quantize_block(blk)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(3, L, D, device=cuda_device, generator=g).to(dtype)
+    hid = torch.randn(3, L, 4 * D, device=cuda_device, generator=g)  # fp32, as fc leaves it
+    kernels.reset_launch_counts()
+    # quant_rows (mode b) and the three GEMM epilogues: bit-exact
+    for t in (x, hid):
+        for got, want in zip(kernels.quant_rows(t), kernels.quant_rows_plain(t)):
+            assert torch.equal(got, want)
+    _assert_ln_quant_close(kernels.layernorm_quant_rows(x, q["ln1s"], q["ln1b"]),
+                           kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"]))
+    a_q, a_s = kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"])
+    h_q, h_s = kernels.quant_rows_plain(hid)
+    for args, epi, res in (((a_q, a_s, q["wqkv"], q["sqkv"], q["bqkv"]), "dequant_bias", None),
+                           ((a_q, a_s, q["wo"], q["so"], q["bo"]), "dequant_bias_residual", x),
+                           ((a_q, a_s, q["wfc"], q["sfc"], q["bfc"]), "dequant_bias_gelu", None),
+                           ((h_q, h_s, q["wproj"], q["sproj"], q["bproj"]),
+                            "dequant_bias_residual", x)):
+        got = kernels.gemm_int8_epilogue(*args, epi, dtype, residual=res)
+        assert torch.equal(got, kernels.gemm_int8_epilogue_plain(*args, epi, dtype, residual=res))
+    # K3, whole and pre-padded with length
+    _assert_int8_block_close(kernels.fused_transformer_block_int8(x, q, H, causal),
+                             kernels.fused_transformer_block_int8_plain(x, q, H, causal), dtype)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 3))
+    _assert_int8_block_close(
+        kernels.fused_transformer_block_int8(xp, q, H, causal, length=L),
+        kernels.fused_transformer_block_int8_plain(xp, q, H, causal, length=L), dtype)
+    # K4 on head-major views
+    qh, kh, vh = (torch.randn(3, H, L, D // H, device=cuda_device, generator=g).to(dtype)
+                  for _ in range(3))
+    _assert_close(kernels.fused_attention(qh, kh, vh, causal),
+                  kernels.fused_attention_plain(qh, kh, vh, causal), dtype)
+    counts = kernels.launch_counts()
+    assert counts["fused_transformer_block_int8"] == 2 and counts["fused_attention"] == 1
+    assert counts["gemm_int8_epilogue"] == 4 + 8 and counts["quant_rows"] == 2 + 4
+    assert counts["layernorm_quant_rows"] == 1 + 4 and counts["attention_packed"] == 2
+    assert counts["fused_transformer_block"] == 0 and counts["gemm_bias_epilogue"] == 0
 
 
 @pytest.mark.cuda
@@ -86,3 +156,15 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         kernels.attention_packed(*(torch.zeros(1, 4, 256, device=cuda_device),) * 3, 1)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.attention_packed(*(torch.zeros(1, 600, 128, device=cuda_device),) * 3, 1)
+    a_q = torch.zeros(4, 64, dtype=torch.int8, device=cuda_device)
+    a_s = torch.ones(4, 1, device=cuda_device)
+    w_q = torch.zeros(8, 64, dtype=torch.int8, device=cuda_device)
+    w_s, b = torch.ones(8, device=cuda_device), torch.zeros(8, device=cuda_device)
+    with pytest.raises(TypeError, match="int8"):
+        kernels.gemm_int8_epilogue(a_q.float(), a_s, w_q, w_s, b, "dequant_bias", torch.float32)
+    with pytest.raises(ValueError, match="do not chain"):
+        kernels.gemm_int8_epilogue(a_q, a_s, w_q.t().contiguous(), w_s, b, "dequant_bias",
+                                   torch.float32)
+    with pytest.raises(ValueError, match="differ"):
+        kernels.fused_attention(*(torch.zeros(1, 2, 8, 64, device=cuda_device),) * 2,
+                                torch.zeros(1, 2, 9, 64, device=cuda_device))

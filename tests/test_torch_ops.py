@@ -24,6 +24,7 @@ from protoclip_tpu.ops import proto as jproto
 from protoclip_tpu.ops.activations import quick_gelu as jax_quick_gelu
 from protoclip_tpu.ops.layernorm import layer_norm as jax_layer_norm
 from protoclip_tpu.ops.pallas_kernels import fused_attention_packed as jax_fused_attention_packed
+from protoclip_tpu.ops.pallas_kernels import fused_attention as jax_fused_attention
 from protoclip_tpu.ops.pallas_kernels import _block_kernel
 from protoclip_tpu.ops.pallas_kernels import fused_transformer_block as jax_fused_block
 
@@ -201,6 +202,39 @@ def test_fused_attention_packed_plain_matches_pallas(rng, L, causal, dtype):
     assert np.abs(ours - ref).mean() < 1e-3
 
 
+@pytest.mark.parametrize("L,causal", [(8, False), (50, False), (77, False), (197, False),
+                                      (5, True), (77, True)])
+def test_fused_attention_plain_matches_pallas(rng, L, causal):
+    """K4's plain version against the head-major Pallas kernel in
+    interpret mode, at the shapes and bar of tests/test_pallas.py:12-36."""
+    B, H, dh = (1, 2, 64) if causal else (2, 3, 64)
+    q, k, v = (rng.standard_normal((B, H, L, dh)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(jax_fused_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                         interpret=True))
+    ours = np32(kernels.fused_attention(*map(T, (q, k, v)), causal))
+    np.testing.assert_allclose(ours, ref, atol=2e-5)
+
+
+def test_fused_attention_plain_bf16_matches_pallas(rng):
+    """bf16 at the bar of tests/test_pallas.py:39-46."""
+    B, H, L, dh = 2, 2, 77, 64
+    q, k, v = (rng.standard_normal((B, H, L, dh)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(jax_fused_attention(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)),
+                                         interpret=True).astype(jnp.float32))
+    ours = np32(kernels.fused_attention(*(T(t, torch.bfloat16) for t in (q, k, v))))
+    np.testing.assert_allclose(ours, ref, atol=0.05)
+
+
+def test_fused_attention_plain_is_the_packed_plain_per_head(rng):
+    """K1's plain version is K4's on the head-major view of each tensor."""
+    B, L, D, H = 2, 13, 64, 4
+    q, k, v = (T(rng.standard_normal((B, L, D))) for _ in range(3))
+    heads = [t.reshape(B, L, H, D // H).transpose(1, 2) for t in (q, k, v)]
+    packed = kernels.fused_attention_packed_plain(q, k, v, H, True, 9)
+    head_major = kernels.fused_attention_plain(*heads, True, 9)
+    assert torch.equal(packed, head_major.transpose(1, 2).reshape(B, L, D))
+
+
 @pytest.mark.parametrize("L,causal", [(50, False), (13, True)])
 def test_fused_block_plain_fp32_matches_pallas_and_residual_block(rng, L, causal):
     B, D, H = 4, 128, 4
@@ -328,6 +362,9 @@ def test_wrappers_take_plain_versions_on_cpu(rng):
                        kernels.fused_attention_packed_plain(x, x, x, H, True, 7))
     assert torch.equal(kernels.fused_attention_packed(x, x, x, H),
                        kernels.fused_attention_packed_plain(x, x, x, H))
+    xh = x.reshape(B, L, H, D // H).transpose(1, 2).contiguous()
+    assert torch.equal(kernels.fused_attention(xh, xh, xh, True),
+                       kernels.fused_attention_plain(xh, xh, xh, True))
     assert torch.equal(kernels.fused_transformer_block(x, blk, H, True),
                        kernels.fused_transformer_block_plain(x, blk, H, True))
     # no kernel was launched
