@@ -24,7 +24,17 @@ Phases, one JSON line each on stdout:
              the same function and the bound, at the main path's encode
              batches (images B=256, prompts B=1024), and the encode rates in
              bf16 (K2) and int8 (K3).
-7. kernels - the contract line: every ported kernel with the path or phase
+7. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+             scripts.bench_block_variants``, the port of
+             scripts/bench_block_variants.py) over every variant at the full
+             ViT-B/16 geometry (B=512, LP=200, 12 layers) and four at
+             ViT-L/14: ms per stack, checksum, twin, bound and launches; each
+             distinct chain held against its plain versions (the stack at
+             B=16, layer 0's block and int8s's attention core at the full
+             batch), twins held to their twin's checksum; then each of its
+             modes, kernels and sites timed alone and held to its check rule
+             at the bench geometry (variant_times).
+8. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches, error, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -142,6 +152,66 @@ def compare(kernel_out, plain_out):
     return rel, cos, diff
 
 
+def bars_agreement(out, ref, bars):
+    """Within (rel, cos) bars: max|diff| / max|plain| below the first,
+    flattened cosine above the second."""
+    rel, cos, diff = compare(out, ref)
+    lim_rel, lim_cos = bars
+    return {"rel": rel, "cos": cos, "max_abs_err": diff, "ok": rel < lim_rel and cos > lim_cos}
+
+
+def exact_agreement(outs, refs):
+    """Bit-exact: every output tensor equal to the plain version's."""
+    import torch
+
+    equal = all(torch.equal(o, r) for o, r in zip(outs, refs))
+    diff = max(float((o.double() - r.double()).abs().max()) for o, r in zip(outs, refs))
+    return {"bit_exact": equal, "max_abs_err": diff, "ok": equal}
+
+
+def ln_quant_agreement(got, want, bf16_stats=False):
+    """LN statistics sum in another order: int8 codes equal in >= 99.9% of
+    entries, never more than one step apart, scales within 1e-6.  With
+    ``bf16_stats`` the mean and variance are rounded to bf16, and a sum on
+    a rounding tie moves its row's scale by up to one bf16 ulp: scales
+    within 1e-6 in >= 99.9% of rows and none more than 2^-7 apart."""
+    (q, sc), (rq, rsc) = got, want
+    step = (q.int() - rq.int()).abs()
+    equal_share = float((step == 0).float().mean())
+    rel = (sc - rsc).abs() / rsc
+    scale_rel = float(rel.max())
+    scale_share = float((rel <= 1e-6).float().mean())
+    scales_ok = scale_rel <= 1e-6 or (bf16_stats and scale_share >= 0.999
+                                      and scale_rel <= 2.0 ** -7)
+    return {"max_step": int(step.max()), "equal_share": equal_share, "scale_rel": scale_rel,
+            "scale_equal_share": scale_share, "max_abs_err": float(step.max()),
+            "ok": int(step.max()) <= 1 and equal_share >= 0.999 and scales_ok}
+
+
+def ulp_agreement(out, ref):
+    """QuickGELU op by op in T: the card's expf and PyTorch's may differ by
+    an fp32 ulp before rounding, so >= 99.9% of outputs equal and none more
+    than one ulp of T off."""
+    steps = ulp_steps(out, ref)
+    equal_share = float((steps == 0).float().mean())
+    return {"max_ulps": int(steps.max()), "equal_share": equal_share,
+            "max_abs_err": _max_abs_err(out, ref),
+            "ok": int(steps.max()) <= 1 and equal_share >= 0.999}
+
+
+def agreement(out, ref, rule):
+    """``out`` against ``ref`` by ``rule``: "exact", "ulp", "ln_quant",
+    "ln_quant_bf16_stats" or a (rel, cos) pair of bars.  Tuples are a
+    kernel's several outputs."""
+    if rule == "exact":
+        return exact_agreement(*((out, ref) if isinstance(out, tuple) else ([out], [ref])))
+    if rule in ("ln_quant", "ln_quant_bf16_stats"):
+        return ln_quant_agreement(out, ref, bf16_stats=rule == "ln_quant_bf16_stats")
+    if rule == "ulp":
+        return ulp_agreement(out, ref)
+    return bars_agreement(out, ref, rule)
+
+
 def phase_check(torch, np):
     from protoclip_tpu_torch.ops import kernels as K
 
@@ -152,34 +222,25 @@ def phase_check(torch, np):
     def dname(dtype):
         return str(dtype).replace("torch.", "")
 
+    def add(kernel, geom, dtype, result, **extra):
+        rows.append({"kernel": kernel, "geometry": geom, "dtype": dname(dtype), **result,
+                     **extra})
+
     def record(kernel, geom, dtype, out, ref, bars=BARS, **extra):
         torch.cuda.synchronize()
-        rel, cos, diff = compare(out, ref)
-        lim_rel, lim_cos = bars[dname(dtype)]
-        ok = rel < lim_rel and cos > lim_cos
-        rows.append({"kernel": kernel, "geometry": geom, "dtype": dname(dtype), "rel": rel,
-                     "cos": cos, "max_abs_err": diff, "ok": ok, **extra})
+        add(kernel, geom, dtype, bars_agreement(out, ref, bars[dname(dtype)]), **extra)
 
     def record_exact(kernel, geom, dtype, outs, refs, **extra):
-        """Bit-exact: every output tensor equal to the plain version's."""
         torch.cuda.synchronize()
-        equal = all(torch.equal(o, r) for o, r in zip(outs, refs))
-        diff = max(float((o.double() - r.double()).abs().max()) for o, r in zip(outs, refs))
-        rows.append({"kernel": kernel, "geometry": geom, "dtype": dname(dtype),
-                     "bit_exact": equal, "max_abs_err": diff, "ok": equal, **extra})
+        add(kernel, geom, dtype, exact_agreement(outs, refs), **extra)
 
-    def record_ln_quant(geom, dtype, got, want):
-        """LN statistics sum in another order: int8 codes equal in >= 99.9%
-        of entries, never more than one step apart, scales within 1e-6."""
+    def record_ln_quant(geom, dtype, got, want, kernel="layernorm_quant_rows", **extra):
         torch.cuda.synchronize()
-        (q, sc), (rq, rsc) = got, want
-        step = (q.int() - rq.int()).abs()
-        equal_share = float((step == 0).float().mean())
-        scale_rel = float(((sc - rsc).abs() / rsc).max())
-        ok = int(step.max()) <= 1 and equal_share >= 0.999 and scale_rel <= 1e-6
-        rows.append({"kernel": "layernorm_quant_rows", "geometry": geom, "dtype": dname(dtype),
-                     "max_step": int(step.max()), "equal_share": equal_share,
-                     "scale_rel": scale_rel, "max_abs_err": float(step.max()), "ok": ok})
+        add(kernel, geom, dtype, ln_quant_agreement(got, want), **extra)
+
+    def record_ulp(kernel, geom, dtype, out, ref, **extra):
+        torch.cuda.synchronize()
+        add(kernel, geom, dtype, ulp_agreement(out, ref), **extra)
 
     for geom, (L, D, H, causal) in GEOMETRIES.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -266,6 +327,48 @@ def phase_check(torch, np):
                    K.fused_transformer_block_int8(xp, qb, H, causal, length=L),
                    K.fused_transformer_block_int8_plain(xp, qb, H, causal, length=L),
                    INT8_BLOCK_BARS, length=L)
+            # the block-variant bench's modes and kernels
+            for mode in ("q_round", "no_softmax"):
+                for length in (L, L - 5):
+                    record("attention_packed." + mode, geom, dtype,
+                           K.attention_packed(*sl, H, causal, length, mode),
+                           K.fused_attention_packed_plain(*sl, H, causal, length, mode),
+                           length=length)
+            for group in (1, 2):
+                record("attention_int8", geom, dtype, K.attention_int8(*sl, H, L - 5, group),
+                       K.attention_int8_plain(*sl, H, L - 5, group), group=group)
+            record_exact("qkv_sum", geom, dtype, [K.qkv_sum(qkv)], [K.qkv_sum_plain(qkv)])
+            # the fp32 accumulator sums in another order than the plain
+            # version, so T(acc + b) may sit an ulp away before QuickGELU:
+            # the GEMM's bars, as bias_gelu (the int8 epilogue's exact
+            # accumulator meets the ulp rule below)
+            fc = (h, p["mlp"]["w_fc"], p["mlp"]["b_fc"], "bias_gelu_bf16")
+            record("gemm_bias_epilogue.bias_gelu_bf16", geom, dtype,
+                   K.gemm_bias_epilogue(*fc), K.gemm_bias_epilogue_plain(*fc))
+            w_down = (qb["wproj"].t().to(dtype) * qb["sproj"].to(dtype)).contiguous()
+            down = (hid_in, w_down, qb["bproj"], "bias32_residual")
+            record("gemm_bias_epilogue.bias32_residual", geom, dtype,
+                   K.gemm_bias_epilogue(*down, residual=x),
+                   K.gemm_bias_epilogue_plain(*down, residual=x))
+            for mode in ("recip", "static", "cast"):
+                for tag, t in (("attn", attn), ("hidden_fp32", hid32)):
+                    record_exact("quant_rows." + mode, geom, dtype, K.quant_rows(t, mode),
+                                 K.quant_rows_plain(t, mode), input=tag)
+                record_ln_quant(geom, dtype, K.layernorm_quant_rows(x, qb["ln1s"], qb["ln1b"], mode=mode),
+                                K.layernorm_quant_rows_plain(x, qb["ln1s"], qb["ln1b"], mode=mode),
+                                kernel="layernorm_quant_rows." + mode)
+            record_ln_quant(geom, dtype,
+                            K.layernorm_quant_rows(x, qb["ln1s"], qb["ln1b"], bf16_stats=True),
+                            K.layernorm_quant_rows_plain(x, qb["ln1s"], qb["ln1b"],
+                                                         bf16_stats=True),
+                            kernel="layernorm_quant_rows.bf16_stats")
+            for epi in ("dequant_bias_gelu_bf16", "dequant_bias_f32", "dequant_bias_gelu_round"):
+                args = (*h_q, qb["wfc"], qb["sfc"], qb["bfc"], epi, dtype)
+                got, want = K.gemm_int8_epilogue(*args), K.gemm_int8_epilogue_plain(*args)
+                if epi == "dequant_bias_gelu_bf16":
+                    record_ulp("gemm_int8_epilogue." + epi, geom, dtype, got, want)
+                else:
+                    record_exact("gemm_int8_epilogue." + epi, geom, dtype, [got], [want])
             del p, qb, x, xp, h, hid_in, qkv, sl, q, k, v, qh, kh, vh, attn, hid32
             torch.cuda.empty_cache()
     for r in rows:
@@ -550,6 +653,20 @@ def bound_ms(n_bytes, ops, dtype="bfloat16"):
         by_bytes, by_ops
 
 
+def ulp_steps(out, ref):
+    """|out - ref| in units in the last place of their dtype (bf16 or fp32),
+    counted across zero: the distance of their bit patterns in order."""
+    import torch
+
+    int_t, width = (torch.int16, 16) if out.dtype == torch.bfloat16 else (torch.int32, 32)
+
+    def ordered(t):
+        bits = t.contiguous().view(int_t).long()
+        return torch.where(bits >= 0, bits, -(bits + (1 << (width - 1))))
+
+    return (ordered(out) - ordered(ref)).abs()
+
+
 def attention_flops(b, l, d, causal):
     pairs = l * (l + 1) // 2 if causal else l * l  # keys a query attends
     return 4 * b * pairs * d
@@ -743,7 +860,312 @@ def phase_encode_times(torch, cfg, params, qparams):
     return out
 
 
-# -- 7. the contract line ------------------------------------------------------------
+# -- 7. the block-variant bench (S1) -------------------------------------------------------
+
+VARIANTS = (
+    "v0 v1 v2 v3 v4 v5 v6 v6g8 v7 v9 v2g8 v2g32 v10 "
+    "int8 int8g8 int8g32 int8h int8gb int8noattn int8static int8recip int8cast int8lnb int8s "
+    "int8sg8 micro:mlp_xla micro:mlp_pallas micro:int8mlp micro:int8mlp_nogelu "
+    "micro:int8mlp_fp32gelu micro:int8qkv micro:attn_pallas micro:attn_nosm micro:attn_noqkv"
+).split()
+VARIANTS_VITL = ("v0", "v2", "int8", "int8s")
+VARIANT_CHECK_BATCH = 16
+# a variant's 12-layer stack on the kernels against the plain versions on
+# the card at B=16: (max|diff| / max|plain|, cosine)
+STACK_BARS = {"bf16": (2e-2, 0.9999), "int8": (5e-2, 0.999)}
+# one block of a site against its plain version at the bench's full batch:
+# the check phase's bars for K2's block (bf16) and K3's (int8)
+SITE_BARS = {"bf16": BARS["bfloat16"], "int8": INT8_BLOCK_BARS["bfloat16"]}
+
+
+def site_work(site, b, lp, length, d, attention="bf16"):
+    """(bytes, {dtype: operations}) of one block of an S1 site: each input
+    read once, each output written once; rows are the LP padded rows, a
+    query attends ``length`` keys (all LP for ``attention="all"``), and
+    ``attention`` says which dot type the core uses (bf16, int8, all,
+    none)."""
+    m = b * lp
+    keys = lp if attention == "all" else length
+    attn = 4 * b * lp * keys * d if attention != "none" else 0
+    attn_dt = "int8" if attention == "int8" else "bfloat16"
+    if site == "bench_block_bf16":
+        return (2 * m * d + 12 * d * d + 9 * d) * 2 + 4 * d * 4, {"bfloat16": 24 * m * d * d + attn}
+    if site == "bench_block_int8":
+        ops = {"int8": 24 * m * d * d}
+        ops[attn_dt] = ops.get(attn_dt, 0) + attn
+        return 2 * m * d * 2 + 12 * d * d + 22 * d * 4, ops
+    if site == "bench_mlp_bf16":
+        return (2 * m * d + 8 * d * d + 5 * d) * 2, {"bfloat16": 16 * m * d * d}
+    if site == "bench_mlp_int8":
+        return 2 * m * d * 2 + 8 * d * d + 12 * d * 4, {"int8": 16 * m * d * d}
+    if site == "bench_qkv_int8":
+        return 2 * m * d * 2 + 4 * d * d + 12 * d * 4, {"int8": 8 * m * d * d}
+    if site == "bench_attn_bf16":
+        return (2 * m * d + 4 * d * d + 4 * d) * 2 + 2 * d * 4, {"bfloat16": 8 * m * d * d + attn}
+    raise ValueError(site)
+
+
+def variant_site(prep):
+    """(S1 site, attention type) of a prepared bench variant."""
+    spec = prep.spec
+    if spec["kind"] == "stack":
+        return "bench_block_bf16", "bf16"
+    if spec["kind"] == "int8":
+        if spec["skip_attn"] and not spec["quant_scores"]:
+            return "bench_block_int8", "none"
+        return "bench_block_int8", ("int8" if spec["quant_scores"] else "bf16")
+    which = spec["which"].split("@")[0]
+    if which in ("mlp_xla", "mlp_pallas"):
+        return "bench_mlp_bf16", "none"
+    if which.startswith("int8mlp"):
+        return "bench_mlp_int8", "none"
+    if which == "int8qkv":
+        return "bench_qkv_int8", "none"
+    return "bench_attn_bf16", {"attn_pallas": "bf16", "attn_nosm": "all"}.get(which, "none")
+
+
+def int8s_qkv(prep):
+    """Layer 0's QKV of an int8s stack, as its block computes it: the input
+    of its first attention_int8 launch."""
+    from protoclip_tpu_torch.ops import kernels as K
+
+    wqkv, sqkv, bqkv, _, _, _, ln1s, ln1b = prep.layers[0][:8]
+    return K.gemm_int8_epilogue(*K.layernorm_quant_rows(prep.x, ln1s, ln1b), wqkv, sqkv, bqkv,
+                                "dequant_bias", prep.x.dtype)
+
+
+def hold_chain(torch, prep, geom, numerics):
+    """A variant's chain against its plain versions on the card: the
+    12-layer stack at B=16 (stack bars), layer 0's block at the full batch
+    (site bars), and, for int8s, its attention core on layer 0's QKV at the
+    full batch and the variant's group (bit-exact)."""
+    from protoclip_tpu_torch.ops import block_variants as bv
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.scripts import bench_block_variants as bench
+
+    with torch.inference_mode():
+        out = bench.stack_output(prep, bv.KERNEL_OPS, VARIANT_CHECK_BATCH)
+        ref = bench.stack_output(prep, bv.PLAIN_OPS, VARIANT_CHECK_BATCH)
+        held = {"stack_b16": bars_agreement(out, ref, STACK_BARS[numerics])}
+        del out, ref
+        layer0 = prep.layers[0]
+        held["block_full_batch"] = bars_agreement(prep.block(prep.x, layer0, bv.KERNEL_OPS),
+                                                  prep.block(prep.x, layer0, bv.PLAIN_OPS),
+                                                  SITE_BARS[numerics])
+        if prep.spec.get("quant_scores"):
+            qkv = int8s_qkv(prep)
+            sl = (qkv[..., :geom.width], qkv[..., geom.width:2 * geom.width],
+                  qkv[..., 2 * geom.width:])
+            held["attention_int8_full_batch"] = exact_agreement(
+                [K.attention_int8(*sl, geom.heads, geom.length, prep.g)],
+                [K.attention_int8_plain(*sl, geom.heads, geom.length, prep.g)])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return held
+
+
+def phase_variants(torch, np):
+    """The port's block-variant bench on the card: every variant of the
+    chip list at the full ViT-B/16 geometry, and four at ViT-L/14, each
+    timed as the bench times it (minimum of 8 after a warm-up; the median
+    too), with its launches.  Each distinct chain is held against its plain
+    versions (:func:`hold_chain`) once; a variant that only reschedules its
+    twin must give the twin's checksum bit for bit.  The launches of the
+    timed runs, and the site blocks they ran, are the "variants" path; the
+    comparisons' launches are not counted."""
+    from protoclip_tpu_torch.ops import block_variants as bv
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.scripts import bench_block_variants as bench
+
+    device = torch.device("cuda")
+    counts = dict.fromkeys([*K.LAUNCHES, *bv.SITE_CALLS], 0)
+    chains = {}  # (geometry, twin): (checksum, what hold_chain found)
+    lines = []
+    t0 = time.perf_counter()
+    for tag, env, names in (("vit_b16", {}, VARIANTS), ("vit_l14", {"BENCH_GEOM": "vitl"},
+                                                         VARIANTS_VITL)):
+        geom = bv.geometry(env)
+        for prep in bench.iter_prepared(names, geom, device):
+            K.reset_launch_counts()
+            bv.reset_site_calls()
+            res = bench.time_stack(prep)
+            run = {**K.launch_counts(), **bv.site_calls()}
+            for k, n in run.items():
+                counts[k] += n
+            per_stack = {k: n // (bench.RUNS + 1) for k, n in run.items() if n}
+            numerics = "int8" if "int8" in prep.name else "bf16"
+            twin = bench.twin(prep.spec, geom)
+            if (tag, twin) not in chains:
+                chains[tag, twin] = (res["checksum"], hold_chain(torch, prep, geom, numerics))
+            twin_checksum, held = chains[tag, twin]
+            site, attention = variant_site(prep)
+            n_bytes, ops = site_work(site, geom.batch, geom.padded, geom.length, geom.width,
+                                     attention)
+            bnd, by, _, _ = bound_ms(n_bytes * geom.layers,
+                                     {dt: n * geom.layers for dt, n in ops.items()})
+            stack = held["stack_b16"]
+            line = {
+                "phase": "variants", "variant": prep.name, "geometry": tag,
+                "batch": geom.batch, "padded_rows": geom.padded, "g": prep.g,
+                "twin": twin, "site": site,
+                "ms_min": res["ms_min"], "ms_median": res["ms_median"],
+                "checksum": res["checksum"], "first_call_s": res["compile_s"],
+                "bound_ms": bnd, "bound_by": by, "launches_per_stack": per_stack,
+                "check_batch": VARIANT_CHECK_BATCH, "numerics": numerics, "rel": stack["rel"],
+                "cos": stack["cos"], "max_abs_err": stack["max_abs_err"], "held": held,
+                "ok": bool(all(h["ok"] for h in held.values()) and np.isfinite(res["checksum"])
+                           and res["checksum"] == twin_checksum),
+                "line": bench.result_line(prep, res),
+            }
+            emit(line)
+            lines.append(line)
+            del prep
+            torch.cuda.empty_cache()
+    bad = [ln["variant"] + "@" + ln["geometry"] for ln in lines if not ln["ok"]]
+    require(not bad, f"variants off their bars: {bad}")
+    emit({"phase": "variants", "runs": len(lines), "chains_held": len(chains), "all_ok": True,
+          "seconds": time.perf_counter() - t0})
+    return lines, counts
+
+
+def phase_variant_times(torch, np):
+    """Each mode and kernel of the bench, and one block of each S1 site,
+    at the bench's ViT-B/16 geometry (B=512, LP=200, D=768, H=12; layer 0
+    of the bench's weights): kernel, plain version, a PyTorch library call
+    where one computes the same function, and the bound.  Each kernel is
+    held against its plain version on these inputs by the check phase's
+    rule for it (:func:`agreement`)."""
+    import torch.nn.functional as F
+
+    from protoclip_tpu_torch.ops import block_variants as bv
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.scripts import bench_block_variants as bench
+
+    geom = bv.geometry({})
+    b, lp, length, d, h = geom.batch, geom.padded, geom.length, geom.width, geom.heads
+    m, dh = b * lp, d // h
+    bf16 = torch.bfloat16
+    dev = torch.device("cuda")
+    x, w = bv.main_draws(geom)
+    x = x.to(dev)
+    layer = tuple(t[0].to(dev) for t in w)
+    (wqkv, bqkv, wo, bo, ln1s, ln1b, ln2s, ln2b, wfc, bfc, wproj, bproj) = layer
+    q8 = tuple(t.to(dev) for t in bench._int8_host_layers(geom, True)[0])
+    r = {}
+
+    def entry(name, rule, kernel, plain, library, n_bytes, ops, dtype="bfloat16"):
+        with torch.inference_mode():
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            held = agreement(out, ref, rule)
+            bnd, by, by_bytes, by_ops = bound_ms(n_bytes, ops, dtype)
+            r[name] = {
+                "ms": median_ms(torch, kernel), "plain_ms": median_ms(torch, plain),
+                "library_ms": None if library is None else median_ms(torch, library),
+                "bound_ms": bnd, "bound_by": by, "bytes_ms": by_bytes, "ops_ms": by_ops,
+                "rule": rule, **held,
+            }
+        del out, ref
+
+    with torch.inference_mode():
+        h1 = K.layernorm_rows(x, ln1s, ln1b)
+        qkv = K.gemm_bias_epilogue(h1, wqkv, bqkv, "bias")
+    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+
+    def heads(t):
+        return t.reshape(b, lp, h, dh).transpose(1, 2)
+
+    attn_bytes = 4 * m * d * 2
+    keep = (torch.arange(lp, device=dev) < length)[None, :]  # SDPA: True attends
+    bf16_bars = BARS["bfloat16"]
+    entry("attention_packed.q_round", bf16_bars,
+          lambda: K.attention_packed(*sl, h, False, length, "q_round"),
+          lambda: K.fused_attention_packed_plain(*sl, h, False, length, "q_round"),
+          lambda: F.scaled_dot_product_attention(*map(heads, sl), attn_mask=keep),
+          attn_bytes, 4 * b * lp * length * d)
+    entry("attention_packed.no_softmax", bf16_bars,
+          lambda: K.attention_packed(*sl, h, False, length, "no_softmax"),
+          lambda: K.fused_attention_packed_plain(*sl, h, False, length, "no_softmax"),
+          None, attn_bytes, 4 * b * lp * lp * d)
+    entry("attention_int8", "exact",
+          lambda: K.attention_int8(*sl, h, length, geom.group),
+          lambda: K.attention_int8_plain(*sl, h, length, geom.group),
+          lambda: F.scaled_dot_product_attention(*map(heads, sl), attn_mask=keep),
+          attn_bytes, {"int8": 4 * b * lp * length * d})
+    entry("qkv_sum", "exact", lambda: K.qkv_sum(qkv), lambda: K.qkv_sum_plain(qkv),
+          lambda: qkv.view(m, 3, d).sum(dim=1), m * 4 * d * 2, 2 * m * d)
+    with torch.inference_mode():
+        h2 = K.layernorm_rows(x, ln2s, ln2b)
+        hid = K.gemm_bias_epilogue(h2, wfc, bfc, "bias_gelu")
+        attn = K.attention_packed(*sl, h, False, length)
+    entry("gemm_bias_epilogue.bias_gelu_bf16", bf16_bars,
+          lambda: K.gemm_bias_epilogue(h2, wfc, bfc, "bias_gelu_bf16"),
+          lambda: K.gemm_bias_epilogue_plain(h2, wfc, bfc, "bias_gelu_bf16"),
+          lambda: K.quick_gelu_rounded(torch.addmm(bfc, h2.view(m, d), wfc)),
+          (m * d + 4 * d * d + 4 * d + m * 4 * d) * 2, 8 * m * d * d)
+    w_down = q8[16]
+    entry("gemm_bias_epilogue.bias32_residual", bf16_bars,
+          lambda: K.gemm_bias_epilogue(hid, w_down, q8[15], "bias32_residual", residual=x),
+          lambda: K.gemm_bias_epilogue_plain(hid, w_down, q8[15], "bias32_residual", residual=x),
+          lambda: torch.addmm(q8[15].to(bf16), hid.view(m, 4 * d), w_down) + x.view(m, d),
+          (m * 4 * d + 4 * d * d + 2 * m * d) * 2 + d * 4, 8 * m * d * d)
+    for mode in ("recip", "static", "cast"):
+        entry(f"quant_rows.{mode}", "exact", lambda mode=mode: K.quant_rows(attn, mode),
+              lambda mode=mode: K.quant_rows_plain(attn, mode), None,
+              m * d * 2 + m * d + m * 4, 3 * m * d, "float32")
+        entry(f"layernorm_quant_rows.{mode}", "ln_quant",
+              lambda mode=mode: K.layernorm_quant_rows(x, ln1s, ln1b, mode=mode),
+              lambda mode=mode: K.layernorm_quant_rows_plain(x, ln1s, ln1b, mode=mode), None,
+              m * d * 2 + m * d + m * 4 + 2 * d * 4, 10 * m * d, "float32")
+    entry("layernorm_quant_rows.bf16_stats", "ln_quant_bf16_stats",
+          lambda: K.layernorm_quant_rows(x, ln1s, ln1b, bf16_stats=True),
+          lambda: K.layernorm_quant_rows_plain(x, ln1s, ln1b, bf16_stats=True), None,
+          m * d * 2 + m * d + m * 4 + 2 * d * 4, 12 * m * d, "float32")
+    with torch.inference_mode():
+        h_q = K.layernorm_quant_rows(x, ln2s, ln2b)
+    wfc_q, sfc, bfc32 = q8[10], q8[11], q8[12]
+    for epi, out_b in (("dequant_bias_gelu_bf16", 2), ("dequant_bias_f32", 4),
+                       ("dequant_bias_gelu_round", 2)):
+        args = (*h_q, wfc_q, sfc, bfc32, epi, bf16)
+
+        def library(epi=epi):
+            y = torch._int_mm(h_q[0].view(m, d), wfc_q.t()).float() * h_q[1].view(m, 1) * sfc + bfc32
+            if epi == "dequant_bias_f32":
+                return y
+            if epi == "dequant_bias_gelu_bf16":
+                return K.quick_gelu_rounded(y.to(bf16))
+            return (y * torch.sigmoid(1.702 * y)).to(bf16)
+
+        entry(f"gemm_int8_epilogue.{epi}", "ulp" if epi == "dequant_bias_gelu_bf16" else "exact",
+              lambda args=args: K.gemm_int8_epilogue(*args),
+              lambda args=args: K.gemm_int8_epilogue_plain(*args), library,
+              m * d + 4 * d * d + 4 * (m + 8 * d) + m * 4 * d * out_b, {"int8": 8 * m * d * d})
+    del h1, h2, hid, attn, h_q
+    torch.cuda.empty_cache()
+    # one block of each S1 site, as the bench's variants run it
+    sites = (("bench_block_bf16", "v2"), ("bench_mlp_bf16", "micro:mlp_pallas"),
+             ("bench_mlp_int8", "micro:int8mlp"), ("bench_qkv_int8", "micro:int8qkv"),
+             ("bench_attn_bf16", "micro:attn_pallas"), ("bench_block_int8", "int8s"))
+    for site, name in sites:
+        prep = next(bench.iter_prepared([name], geom, dev))
+        _, attention = variant_site(prep)
+        n_bytes, ops = site_work(site, b, lp, length, d, attention)
+        layer0 = prep.layers[0]
+        entry(site, SITE_BARS["int8" if "int8" in site else "bf16"],
+              lambda prep=prep, layer0=layer0: prep.block(prep.x, layer0, bv.KERNEL_OPS),
+              lambda prep=prep, layer0=layer0: prep.block(prep.x, layer0, bv.PLAIN_OPS), None,
+              n_bytes, ops)
+        r[site]["variant"] = name
+        del prep, layer0
+        torch.cuda.empty_cache()
+    emit({"phase": "variant_times", "batch": b, "padded_rows": lp, "L": length, "D": d,
+          "heads": h, "kernels": r})
+    bad = [name for name, row in r.items() if not row["ok"]]
+    require(not bad, f"bench kernels off their plain versions at the bench geometry: {bad}")
+    return r
+
+
+# -- 8. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -763,25 +1185,62 @@ KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that laun
                                      "main_int8"),
     "fused_attention": ("protoclip_tpu_torch/csrc/attention_packed.cu", f"{PALLAS}:65", "check"),
 }
+BENCH = "scripts/bench_block_variants.py"
+CSRC = "protoclip_tpu_torch/csrc/"
+KERNEL_SOURCES.update({  # the block-variant bench (S1): its modes, its kernels, its sites
+    "attention_packed.q_round": (CSRC + "attention_packed.cu", f"{BENCH}:212", "variants"),
+    "attention_packed.no_softmax": (CSRC + "attention_packed.cu", f"{BENCH}:664", "variants"),
+    "gemm_bias_epilogue.bias_gelu_bf16": (CSRC + "gemm_bias_epilogue.cu", f"{BENCH}:274",
+                                          "variants"),
+    "gemm_bias_epilogue.bias32_residual": (CSRC + "gemm_bias_epilogue.cu", f"{BENCH}:893",
+                                           "variants"),
+    "gemm_int8_epilogue.dequant_bias_gelu_bf16": (CSRC + "gemm_int8_epilogue.cu",
+                                                  f"{BENCH}:884", "variants"),
+    "gemm_int8_epilogue.dequant_bias_f32": (CSRC + "gemm_int8_epilogue.cu", f"{BENCH}:516",
+                                            "variants"),
+    "gemm_int8_epilogue.dequant_bias_gelu_round": (CSRC + "gemm_int8_epilogue.cu",
+                                                   f"{BENCH}:886", "variants"),
+    "quant_rows.recip": (CSRC + "quant_rows.cu", f"{BENCH}:758", "variants"),
+    "quant_rows.static": (CSRC + "quant_rows.cu", f"{BENCH}:777", "variants"),
+    "quant_rows.cast": (CSRC + "quant_rows.cu", f"{BENCH}:788", "variants"),
+    "layernorm_quant_rows.recip": (CSRC + "quant_rows.cu", f"{BENCH}:758", "variants"),
+    "layernorm_quant_rows.static": (CSRC + "quant_rows.cu", f"{BENCH}:777", "variants"),
+    "layernorm_quant_rows.cast": (CSRC + "quant_rows.cu", f"{BENCH}:788", "variants"),
+    "layernorm_quant_rows.bf16_stats": (CSRC + "quant_rows.cu", f"{BENCH}:798", "variants"),
+    "attention_int8": (CSRC + "attention_int8.cu", f"{BENCH}:1023", "variants"),
+    "qkv_sum": (CSRC + "qkv_sum.cu", f"{BENCH}:583", "variants"),
+    "bench_block_bf16": ("protoclip_tpu_torch/ops/block_variants.py", f"{BENCH}:304", "variants"),
+    "bench_mlp_bf16": ("protoclip_tpu_torch/ops/block_variants.py", f"{BENCH}:462", "variants"),
+    "bench_mlp_int8": ("protoclip_tpu_torch/ops/block_variants.py", f"{BENCH}:529", "variants"),
+    "bench_qkv_int8": ("protoclip_tpu_torch/ops/block_variants.py", f"{BENCH}:589", "variants"),
+    "bench_attn_bf16": ("protoclip_tpu_torch/ops/block_variants.py", f"{BENCH}:687", "variants"),
+    "bench_block_int8": ("protoclip_tpu_torch/ops/block_variants.py", f"{BENCH}:947", "variants"),
+})
 
 
-def phase_kernels(counts, times):
+def phase_kernels(counts, times, vtimes):
     """One entry per ported kernel, timed at the image block (ViT-B/16,
-    B=256).  ``launches`` is the count of the run named by ``path``: the
-    bf16 main path, the int8 main path, or, for K1 and K4, which no path
-    runs, the check phase.  The parts of a kernel timed apiece (the four
-    GEMMs of a block, quant_rows on the attention output and on the fp32
-    hidden) are summed."""
+    B=256), or, for the bench's modes, kernels and sites, at the bench's
+    geometry (B=512, LP=200).  ``launches`` is the count of the run named by
+    ``path``: the bf16 main path, the int8 main path, the bench's variants,
+    or, for K1 and K4, which no path runs, the check phase; for an S1 site
+    it is the site's blocks run on the kernels, each a chain of the kernel
+    launches counted in the other rows.  The parts of a
+    kernel timed apiece (the four GEMMs of a block, quant_rows on the
+    attention output and on the fp32 hidden) are summed."""
     image = times["image"]["kernels"]
     rows = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
-        parts = [v for k, v in image.items() if k == name or k.startswith(name + ".")]
+        if path == "variants":
+            parts = [vtimes[name]]
+        else:
+            parts = [v for k, v in image.items() if k == name or k.startswith(name + ".")]
         lib = [pt["library_ms"] for pt in parts]
         by_bytes, by_ops = sum(pt["bytes_ms"] for pt in parts), sum(pt["ops_ms"] for pt in parts)
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": counts[path][name],
-            "launches_by_path": {run: c[name] for run, c in counts.items()},
+            "launches_by_path": {run: c.get(name, 0) for run, c in counts.items()},
             "max_abs_err": max(pt["max_abs_err"] for pt in parts),
             "ms": sum(pt["ms"] for pt in parts),
             "plain_ms": sum(pt["plain_ms"] for pt in parts),
@@ -814,7 +1273,11 @@ def main() -> int:
     _, qparams, counts["main_int8"] = phase_main_int8(torch, np, data, ref)
     times = phase_times(torch, np, params, qparams)
     phase_encode_times(torch, cfg, params, qparams)
-    phase_kernels(counts, times)
+    del params, qparams
+    torch.cuda.empty_cache()
+    _, counts["variants"] = phase_variants(torch, np)
+    vtimes = phase_variant_times(torch, np)
+    phase_kernels(counts, times, vtimes)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0

@@ -28,6 +28,16 @@
 // (B, H, L, dh) tensors (H*L*dh, L*dh, dh).  K4 is not padded: the TPU
 // wrapper pads L to 8 for the sublanes only, and this kernel masks by
 // length.
+//
+// Two more modes serve the block-variant bench (scripts/bench_block_variants.py,
+// make_kernel :60 and bench_micro :610-685), whose bf16 variants scale q in
+// the activation dtype:
+//   ATT_Q_ROUND     q is T(q * T(scale)), rounded to the activation dtype
+//                   before the fp32 score dot (`qkv[...] * scale` on a bf16
+//                   slice, :212, :657, :850: the Python scale is cast to bf16)
+//   ATT_NO_SOFTMAX  as ATT_Q_ROUND, then weights T(s * 0.005) over all L keys
+//                   with no mask and no softmax (attn_nosm, :664-665); it
+//                   ignores length and causal.
 #include "common.cuh"
 
 namespace {
@@ -35,6 +45,7 @@ namespace {
 constexpr int ATT_WARPS = 8;    // warps per block, one query row each at a time
 constexpr int ATT_QTILE = 64;   // query rows per block
 constexpr int ATT_MAX_DH = 128;
+enum { ATT_SOFTMAX = 0, ATT_Q_ROUND = 1, ATT_NO_SOFTMAX = 2 };
 
 // Row padding (elements) that makes a K/V row an odd number of 4-byte words.
 template <typename T>
@@ -56,7 +67,7 @@ __global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, long long sb, long long sh, long long sr,
                         T* __restrict__ out, long long osb, long long osh, long long osr,
-                        int L, int dh, int length, int causal, float scale) {
+                        int L, int dh, int length, int causal, int mode, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ks = dh + kv_pad<T>();
   T* Ks = reinterpret_cast<T*>(smem);
@@ -68,7 +79,10 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const long long base = blockIdx.z * sb + blockIdx.y * sh;  // this (batch, head)
   const long long obase = blockIdx.z * osb + blockIdx.y * osh;
-  const int kend = min(L, length);
+  const bool no_softmax = mode == ATT_NO_SOFTMAX;
+  const int kend = no_softmax ? L : min(L, length);
+  // ATT_Q_ROUND / ATT_NO_SOFTMAX: the scale rounded to T, the product too
+  const float scale_t = pck::round_to<T>(scale);
 
   for (int idx = threadIdx.x; idx < kend * dh; idx += blockDim.x) {
     const int j = idx / dh, d = idx - j * dh;
@@ -85,10 +99,12 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int r = blockIdx.x * ATT_QTILE + warp; r < r_end; r += ATT_WARPS) {
     const T* qrow = q + base + r * sr;
-    for (int d = lane; d < dh; d += 32) qw[d] = pck::to_f(qrow[d]) * scale;
+    for (int d = lane; d < dh; d += 32)
+      qw[d] = mode == ATT_SOFTMAX ? pck::to_f(qrow[d]) * scale
+                                  : pck::round_to<T>(__fmul_rn(pck::to_f(qrow[d]), scale_t));
     __syncwarp();
 
-    const int jend = causal ? min(kend, r + 1) : kend;
+    const int jend = (causal && !no_softmax) ? min(kend, r + 1) : kend;
     float mx = -1e30f;
     for (int j = lane; j < jend; j += 32) {
       const T* kr = Ks + j * ks;
@@ -97,16 +113,19 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
       pw[j] = s;
       mx = fmaxf(mx, s);
     }
-    mx = pck::warp_max(mx);
-
-    float sum = 0.f;
-    for (int j = lane; j < jend; j += 32) {
-      const float e = expf(pw[j] - mx);
-      pw[j] = e;
-      sum += e;
+    if (no_softmax) {
+      for (int j = lane; j < jend; j += 32) pw[j] = pck::round_to<T>(__fmul_rn(pw[j], 0.005f));
+    } else {
+      mx = pck::warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < jend; j += 32) {
+        const float e = expf(pw[j] - mx);
+        pw[j] = e;
+        sum += e;
+      }
+      sum = pck::warp_sum(sum);
+      for (int j = lane; j < jend; j += 32) pw[j] = pck::round_to<T>(pw[j] / sum);
     }
-    sum = pck::warp_sum(sum);
-    for (int j = lane; j < jend; j += 32) pw[j] = pck::round_to<T>(pw[j] / sum);
     __syncwarp();
 
     float acc[ATT_MAX_DH / 32];
@@ -134,7 +153,7 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const long long* st, void* out,
            const long long* ost, int B, int L, int H, int dh, int length, int causal,
-           float scale, cudaStream_t stream) {
+           int mode, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(L, dh);
   cudaError_t err = cudaFuncSetAttribute(attention_packed_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -142,7 +161,7 @@ int launch(const void* q, const void* k, const void* v, const long long* st, voi
   const dim3 grid((L + ATT_QTILE - 1) / ATT_QTILE, H, B);
   attention_packed_kernel<T><<<grid, ATT_WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), st[0], st[1],
-      st[2], static_cast<T*>(out), ost[0], ost[1], ost[2], L, dh, length, causal, scale);
+      st[2], static_cast<T*>(out), ost[0], ost[1], ost[2], L, dh, length, causal, mode, scale);
   return (int)cudaGetLastError();
 }
 
@@ -154,14 +173,17 @@ int launch(const void* q, const void* k, const void* v, const long long* st, voi
 extern "C" int attention_packed(int dtype, const void* q, const void* k, const void* v,
                                 long long sb, long long sh, long long sr, void* out,
                                 long long osb, long long osh, long long osr, int B, int L, int H,
-                                int dh, int length, int causal, float scale, void* stream) {
+                                int dh, int length, int causal, int mode, float scale,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh > ATT_MAX_DH || length < 1) return (int)cudaErrorInvalidValue;
+  if (dh > ATT_MAX_DH || length < 1 || mode < ATT_SOFTMAX || mode > ATT_NO_SOFTMAX)
+    return (int)cudaErrorInvalidValue;
   const long long st[3] = {sb, sh, sr}, ost[3] = {osb, osh, osr};
   if (dtype == PCK_BF16)
-    return launch<__nv_bfloat16>(q, k, v, st, out, ost, B, L, H, dh, length, causal, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, st, out, ost, B, L, H, dh, length, causal, mode, scale,
+                                 s);
   if (dtype == PCK_F32)
-    return launch<float>(q, k, v, st, out, ost, B, L, H, dh, length, causal, scale, s);
+    return launch<float>(q, k, v, st, out, ost, B, L, H, dh, length, causal, mode, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,6 +31,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
+// QuickGELU op by op in T, each op rounded, as JAX evaluates
+// hb * (1.0 / (1.0 + jnp.exp(-(hb * 1.702)))) on a T array: the weak-typed
+// constant is T(1.702).  hb is already a value of T; the result is not
+// rounded.
+template <typename T>
+__device__ __forceinline__ float quick_gelu_rounded(float hb) {
+  float t = round_to<T>(__fmul_rn(hb, round_to<T>(1.702f)));
+  t = round_to<T>(expf(-t));
+  t = round_to<T>(__fadd_rn(1.f, t));
+  t = round_to<T>(__fdiv_rn(1.f, t));
+  return __fmul_rn(hb, t);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

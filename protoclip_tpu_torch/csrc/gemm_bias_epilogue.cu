@@ -11,6 +11,14 @@
 //                                            h = acc + f32(b) in fp32
 // The fc bias arrives already rounded to the activation dtype (the TPU
 // wrapper casts it, :426) and is widened to fp32 here.
+// Two more epilogues serve the block-variant bench
+// (scripts/bench_block_variants.py):
+//   EPI_BIAS_GELU_BF16    fc of v2/v3/v4 (:272-274), mlp_pallas (:452-454):
+//                         hb = T(acc + f32(b)), then hb * (1 / (1 + exp(
+//                         -(hb * T(1.702))))) with every op rounded to T
+//                         (bf16 on the bench), as JAX evaluates it
+//   EPI_BIAS32_RESIDUAL   int8h's bf16 down-projection (:893-901):
+//                         T(res + T(acc + b)) with an fp32 bias
 //
 // Bound on the H100: operations.  At ViT-B/16 widths a product does
 // 2*M*K*N flops over (M*K + K*N + M*N) values, hundreds of flops per byte
@@ -29,6 +37,7 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -37,21 +46,41 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
-enum { EPI_BIAS = 0, EPI_BIAS_RESIDUAL = 1, EPI_BIAS_GELU = 2 };
+enum { EPI_BIAS = 0, EPI_BIAS_RESIDUAL = 1, EPI_BIAS_GELU = 2, EPI_BIAS_GELU_BF16 = 3,
+       EPI_BIAS32_RESIDUAL = 4 };
+// The block's three epilogues share one kernel and pick theirs at run time,
+// as before the bench's were added; the bench's two are instantiations of
+// their own.
+constexpr int EPI_BLOCK = -1;
 
-template <typename T>
-__device__ __forceinline__ void epilogue_store(float acc, int epi, const T* __restrict__ bias,
+// The bias is T, or fp32 for EPI_BIAS32_RESIDUAL.
+template <typename T, int EPI>
+using bias_t = std::conditional_t<EPI == EPI_BIAS32_RESIDUAL, float, T>;
+
+// EPI: EPI_BLOCK (then `epi` picks EPI_BIAS, EPI_BIAS_RESIDUAL or
+// EPI_BIAS_GELU), EPI_BIAS_GELU_BF16 or EPI_BIAS32_RESIDUAL.
+template <typename T, int EPI>
+__device__ __forceinline__ void epilogue_store(float acc, int epi,
+                                               const bias_t<T, EPI>* __restrict__ bias,
                                                const T* __restrict__ resid, T* __restrict__ out,
                                                long m, int n, int N) {
   const long idx = m * N + n;
-  if (epi == EPI_BIAS_GELU) {
-    const float h = acc + pck::to_f(bias[n]);
-    out[idx] = pck::from_f<T>(h * (1.f / (1.f + expf(-1.702f * h))));
-    return;
+  if constexpr (EPI == EPI_BIAS32_RESIDUAL) {
+    const float y = pck::round_to<T>(__fadd_rn(acc, bias[n]));
+    out[idx] = pck::from_f<T>(__fadd_rn(pck::to_f(resid[idx]), y));
+  } else if constexpr (EPI == EPI_BIAS_GELU_BF16) {
+    out[idx] = pck::from_f<T>(
+        pck::quick_gelu_rounded<T>(pck::round_to<T>(__fadd_rn(acc, pck::to_f(bias[n])))));
+  } else {
+    if (epi == EPI_BIAS_GELU) {
+      const float h = acc + pck::to_f(bias[n]);
+      out[idx] = pck::from_f<T>(h * (1.f / (1.f + expf(-1.702f * h))));
+      return;
+    }
+    float y = pck::round_to<T>(pck::round_to<T>(acc) + pck::to_f(bias[n]));
+    if (epi == EPI_BIAS_RESIDUAL) y = pck::to_f(resid[idx]) + y;
+    out[idx] = pck::from_f<T>(y);
   }
-  float y = pck::round_to<T>(pck::round_to<T>(acc) + pck::to_f(bias[n]));
-  if (epi == EPI_BIAS_RESIDUAL) y = pck::to_f(resid[idx]) + y;
-  out[idx] = pck::from_f<T>(y);
 }
 
 // -- bf16: WMMA tensor-core tile ---------------------------------------------
@@ -61,9 +90,10 @@ constexpr int A_LD = BK + 8;  // padded row strides (elements), 16-byte multiple
 constexpr int B_LD = BN + 8;
 constexpr int WMMA_THREADS = 256;
 
+template <int EPI>
 __global__ void __launch_bounds__(WMMA_THREADS)
 gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ W,
-               const bf16* __restrict__ bias, const bf16* __restrict__ resid,
+               const bias_t<bf16, EPI>* __restrict__ bias, const bf16* __restrict__ resid,
                bf16* __restrict__ out, int M, int N, int K, int epi, int vec_a, int vec_b) {
   __shared__ __align__(128) bf16 As[BM * A_LD];
   __shared__ __align__(128) bf16 Bs[BK * B_LD];
@@ -141,7 +171,7 @@ gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ W,
       for (int e = lane; e < 256; e += 32) {
         const long gm = m0 + wm * 64 + i * 16 + (e >> 4);
         const int gn = n0 + wn * 32 + j * 16 + (e & 15);
-        if (gm < M && gn < N) epilogue_store<bf16>(cs[e], epi, bias, resid, out, gm, gn, N);
+        if (gm < M && gn < N) epilogue_store<bf16, EPI>(cs[e], epi, bias, resid, out, gm, gn, N);
       }
       __syncwarp();
     }
@@ -152,9 +182,10 @@ gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ W,
 
 constexpr int SBM = 64, SBN = 64, SBK = 16;
 
-template <typename T>
+template <typename T, int EPI>
 __global__ void __launch_bounds__(256)
-gemm_simt(const T* __restrict__ A, const T* __restrict__ W, const T* __restrict__ bias,
+gemm_simt(const T* __restrict__ A, const T* __restrict__ W,
+          const bias_t<T, EPI>* __restrict__ bias,
           const T* __restrict__ resid, T* __restrict__ out, int M, int N, int K, int epi) {
   __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
   __shared__ float Bs[SBK][SBN + 4];
@@ -197,12 +228,32 @@ gemm_simt(const T* __restrict__ A, const T* __restrict__ W, const T* __restrict_
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
-      if (gm < M && gn < N) epilogue_store<T>(acc[i][j], epi, bias, resid, out, gm, gn, N);
+      if (gm < M && gn < N) epilogue_store<T, EPI>(acc[i][j], epi, bias, resid, out, gm, gn, N);
     }
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <int EPI>
+void launch(int dtype, const void* a, const void* w, const void* bias, const void* resid,
+            void* out, int M, int N, int K, int epi, cudaStream_t s) {
+  if (dtype == PCK_BF16) {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    const int vec_a = (K % 8 == 0) && aligned16(a);
+    const int vec_b = (N % 8 == 0) && aligned16(w);
+    gemm_bf16_wmma<EPI><<<grid, WMMA_THREADS, 0, s>>>(
+        static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+        static_cast<const bias_t<bf16, EPI>*>(bias), static_cast<const bf16*>(resid),
+        static_cast<bf16*>(out), M, N, K, epi, vec_a, vec_b);
+  } else {
+    const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
+    gemm_simt<float, EPI><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<const float*>(resid),
+        static_cast<float*>(out), M, N, K, epi);
+  }
+}
 
 }  // namespace
 
@@ -210,23 +261,14 @@ extern "C" int gemm_bias_epilogue(int dtype, const void* a, const void* w, const
                                   const void* resid, void* out, int M, int N, int K, int epi,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (epi < EPI_BIAS || epi > EPI_BIAS_GELU) return (int)cudaErrorInvalidValue;
-  if (dtype == PCK_BF16) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    const int vec_a = (K % 8 == 0) && aligned16(a);
-    const int vec_b = (N % 8 == 0) && aligned16(w);
-    gemm_bf16_wmma<<<grid, WMMA_THREADS, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-        static_cast<const bf16*>(bias), static_cast<const bf16*>(resid),
-        static_cast<bf16*>(out), M, N, K, epi, vec_a, vec_b);
-  } else if (dtype == PCK_F32) {
-    const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
-    gemm_simt<float><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<const float*>(resid),
-        static_cast<float*>(out), M, N, K, epi);
-  } else {
+  if (dtype != PCK_BF16 && dtype != PCK_F32) return (int)cudaErrorInvalidValue;
+  if (epi == EPI_BIAS_GELU_BF16)
+    launch<EPI_BIAS_GELU_BF16>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  else if (epi == EPI_BIAS32_RESIDUAL)
+    launch<EPI_BIAS32_RESIDUAL>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  else if (epi >= EPI_BIAS && epi <= EPI_BIAS_GELU)
+    launch<EPI_BLOCK>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  else
     return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,12 @@
 //   DQ_BIAS_RESIDUAL  out-proj (:569-574),          T(f32(res) + f32(T(y)))
 //                     proj (:580-585)
 //   DQ_BIAS_GELU      fc (:577-578):                y * sigmoid(1.702 y), fp32 out
+// and three more for the block-variant bench (scripts/bench_block_variants.py):
+//   DQ_BIAS_GELU_BF16   int8gb (:880-884), micro:int8mlp (:521-523):
+//                       hb = T(y), then QuickGELU op by op in T, T out
+//   DQ_BIAS_F32         micro:int8mlp_nogelu (:516-518):  y, fp32 out
+//   DQ_BIAS_GELU_ROUND  int8h (:886, :894): T(y * sigmoid(1.702 y)), the
+//                       fp32 QuickGELU rounded to T for the bf16 down-projection
 // T rounds to the activation dtype.  One rounding for QKV, unlike K2's
 // T(T(acc) + b).  The epilogue is written with the _rn intrinsics (never
 // contracted into an FMA) and sigmoid as 1 / (1 + expf(-(1.702 y))), the
@@ -39,7 +45,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-enum { DQ_BIAS = 0, DQ_BIAS_RESIDUAL = 1, DQ_BIAS_GELU = 2 };
+enum { DQ_BIAS = 0, DQ_BIAS_RESIDUAL = 1, DQ_BIAS_GELU = 2, DQ_BIAS_GELU_BF16 = 3, DQ_BIAS_F32 = 4,
+       DQ_BIAS_GELU_ROUND = 5 };
 
 constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int LDS = BK + 16;  // shared row stride in bytes
@@ -72,27 +79,34 @@ __device__ __forceinline__ void load_tile(int8_t* __restrict__ dst, const int8_t
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void dq_store(int acc, int epi, float rs, float cs, float b,
+template <typename T, int EPI>
+__device__ __forceinline__ void dq_store(int acc, float rs, float cs, float b,
                                          const T* __restrict__ resid, void* __restrict__ out,
                                          long idx) {
   const float y = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), b);
-  if (epi == DQ_BIAS_GELU) {
+  if constexpr (EPI == DQ_BIAS_F32) {
+    static_cast<float*>(out)[idx] = y;
+  } else if constexpr (EPI == DQ_BIAS_GELU || EPI == DQ_BIAS_GELU_ROUND) {
     const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, y))));
-    static_cast<float*>(out)[idx] = __fmul_rn(y, sig);
-    return;
+    if constexpr (EPI == DQ_BIAS_GELU)
+      static_cast<float*>(out)[idx] = __fmul_rn(y, sig);
+    else
+      static_cast<T*>(out)[idx] = pck::from_f<T>(__fmul_rn(y, sig));
+  } else if constexpr (EPI == DQ_BIAS_GELU_BF16) {
+    static_cast<T*>(out)[idx] = pck::from_f<T>(pck::quick_gelu_rounded<T>(pck::round_to<T>(y)));
+  } else if constexpr (EPI == DQ_BIAS_RESIDUAL) {
+    static_cast<T*>(out)[idx] = pck::from_f<T>(__fadd_rn(pck::to_f(resid[idx]), pck::round_to<T>(y)));
+  } else {
+    static_cast<T*>(out)[idx] = pck::from_f<T>(y);
   }
-  float v = y;
-  if (epi == DQ_BIAS_RESIDUAL) v = __fadd_rn(pck::to_f(resid[idx]), pck::round_to<T>(y));
-  static_cast<T*>(out)[idx] = pck::from_f<T>(v);
 }
 
-template <typename T>
+template <typename T, int EPI>
 __global__ void __launch_bounds__(THREADS)
 gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ row_scale,
                const int8_t* __restrict__ W, const float* __restrict__ col_scale,
                const float* __restrict__ bias, const T* __restrict__ resid,
-               void* __restrict__ out, int M, int N, int K, int epi, int vec) {
+               void* __restrict__ out, int M, int N, int K, int vec) {
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
 
@@ -154,7 +168,7 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ row_scale
         for (int e = 0; e < 2; ++e) {
           const int gn = n0 + wn * 32 + j * 8 + tig * 2 + e;
           if (gn < N)
-            dq_store<T>(acc[i][j][h * 2 + e], epi, rs, col_scale[gn], bias[gn], resid, out,
+            dq_store<T, EPI>(acc[i][j][h * 2 + e], rs, col_scale[gn], bias[gn], resid, out,
                         gm * N + gn);
         }
       }
@@ -164,26 +178,47 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ row_scale
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+template <typename T, int EPI>
+void launch_epi(const void* a, const void* rs, const void* w, const void* cs, const void* bias,
+                const void* resid, void* out, int M, int N, int K, cudaStream_t s) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  const int vec = (K % 16 == 0) && aligned16(a) && aligned16(w);
+  gemm_s8_kernel<T, EPI><<<grid, THREADS, 0, s>>>(
+      static_cast<const int8_t*>(a), static_cast<const float*>(rs),
+      static_cast<const int8_t*>(w), static_cast<const float*>(cs),
+      static_cast<const float*>(bias), static_cast<const T*>(resid), out, M, N, K, vec);
+}
+
+// One instantiation per epilogue: a runtime switch in the store loop costs
+// registers and time in every product.
 template <typename T>
 void launch(const void* a, const void* rs, const void* w, const void* cs, const void* bias,
             const void* resid, void* out, int M, int N, int K, int epi, cudaStream_t s) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  const int vec = (K % 16 == 0) && aligned16(a) && aligned16(w);
-  gemm_s8_kernel<T><<<grid, THREADS, 0, s>>>(
-      static_cast<const int8_t*>(a), static_cast<const float*>(rs),
-      static_cast<const int8_t*>(w), static_cast<const float*>(cs),
-      static_cast<const float*>(bias), static_cast<const T*>(resid), out, M, N, K, epi, vec);
+  switch (epi) {
+    case DQ_BIAS: return launch_epi<T, DQ_BIAS>(a, rs, w, cs, bias, resid, out, M, N, K, s);
+    case DQ_BIAS_RESIDUAL:
+      return launch_epi<T, DQ_BIAS_RESIDUAL>(a, rs, w, cs, bias, resid, out, M, N, K, s);
+    case DQ_BIAS_GELU:
+      return launch_epi<T, DQ_BIAS_GELU>(a, rs, w, cs, bias, resid, out, M, N, K, s);
+    case DQ_BIAS_GELU_BF16:
+      return launch_epi<T, DQ_BIAS_GELU_BF16>(a, rs, w, cs, bias, resid, out, M, N, K, s);
+    case DQ_BIAS_F32:
+      return launch_epi<T, DQ_BIAS_F32>(a, rs, w, cs, bias, resid, out, M, N, K, s);
+    default:
+      return launch_epi<T, DQ_BIAS_GELU_ROUND>(a, rs, w, cs, bias, resid, out, M, N, K, s);
+  }
 }
 
 }  // namespace
 
-// dtype: the activation dtype of the residual and of the DQ_BIAS /
-// DQ_BIAS_RESIDUAL output; the DQ_BIAS_GELU output is fp32 whatever it is.
+// dtype: the activation dtype of the residual and of the DQ_BIAS,
+// DQ_BIAS_RESIDUAL, DQ_BIAS_GELU_BF16 and DQ_BIAS_GELU_ROUND outputs; the
+// DQ_BIAS_GELU and DQ_BIAS_F32 outputs are fp32 whatever it is.
 extern "C" int gemm_int8_epilogue(int dtype, const void* a, const void* row_scale, const void* w,
                                   const void* col_scale, const void* bias, const void* resid,
                                   void* out, int M, int N, int K, int epi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (epi < DQ_BIAS || epi > DQ_BIAS_GELU || M < 0 || N < 1 || K < 1)
+  if (epi < DQ_BIAS || epi > DQ_BIAS_GELU_ROUND || M < 0 || N < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   if ((resid == nullptr) != (epi != DQ_BIAS_RESIDUAL)) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;

@@ -38,16 +38,24 @@ _SIGNATURES = {
     "attention_packed": (
         c_int,
         [c_int, c_ptr, c_ptr, c_ptr, c_i64, c_i64, c_i64, c_ptr, c_i64, c_i64, c_i64,
-         c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_ptr],
+         c_int, c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_ptr],
+    ),
+    "attention_int8": (
+        c_int,
+        [c_int, c_ptr, c_ptr, c_ptr, c_i64, c_i64, c_i64, c_ptr, c_i64, c_i64, c_i64,
+         c_int, c_int, c_int, c_int, c_int, c_int, c_ptr, c_float, c_ptr],
     ),
     "quant_rows": (
-        c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_float, c_ptr],
+        c_int,
+        [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_float, c_int, c_int, c_ptr],
     ),
+    "qkv_sum": (c_int, [c_int, c_ptr, c_ptr, c_int, c_int, c_ptr]),
     "gemm_int8_epilogue": (
         c_int,
         [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_ptr],
     ),
     "attention_packed_smem_bytes": (ctypes.c_size_t, [c_int, c_int, c_int]),
+    "attention_int8_smem_bytes": (ctypes.c_size_t, [c_int, c_int]),
     "protoclip_error_string": (ctypes.c_char_p, [c_int]),
 }
 

@@ -23,6 +23,16 @@ activations quantized per row at four points:
 K1 (``fused_attention_packed``) and K4 (``fused_attention``, head-major)
 are two more entries to ``attention_packed``.
 
+The block-variant bench (S1, ``scripts/bench_block_variants.py``, ported as
+``ops/block_variants.py``) moves those cast points.  Its modes are modes of
+the same kernels: q rounded to the activation dtype before the scores and
+a no-softmax stand-in (``attention_packed``), QuickGELU op by op in bf16 and
+an fp32-bias residual (``gemm_bias_epilogue``), three more dequant epilogues
+(``gemm_int8_epilogue``), the recip/static/cast quantizers and bf16
+LayerNorm statistics (``quant_rows.cu``).  Two kernels are its own:
+``attention_int8`` (the int8 attention core of ``int8s``) and ``qkv_sum``
+(q + k + v in place of attention).
+
 Every wrapper takes its plain version for tensors on the CPU and launches
 its kernel for CUDA tensors, or raises; it never falls back.  The plain
 versions keep the TPU kernel's cast points (fp32 LayerNorm statistics,
@@ -44,8 +54,16 @@ import torch
 from protoclip_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # PCK_F32 / PCK_BF16 in csrc/common.cuh
-_EPILOGUES = {"bias": 0, "bias_residual": 1, "bias_gelu": 2}
-_INT8_EPILOGUES = {"dequant_bias": 0, "dequant_bias_residual": 1, "dequant_bias_gelu": 2}
+_EPILOGUES = {"bias": 0, "bias_residual": 1, "bias_gelu": 2, "bias_gelu_bf16": 3,
+              "bias32_residual": 4}
+_RESIDUAL_EPILOGUES = ("bias_residual", "bias32_residual")
+_INT8_EPILOGUES = {"dequant_bias": 0, "dequant_bias_residual": 1, "dequant_bias_gelu": 2,
+                   "dequant_bias_gelu_bf16": 3, "dequant_bias_f32": 4,
+                   "dequant_bias_gelu_round": 5}
+_FP32_OUT_EPILOGUES = ("dequant_bias_gelu", "dequant_bias_f32")
+_ATTENTION_MODES = {"softmax": 0, "q_round": 1, "no_softmax": 2}
+_QUANT_MODES = {"dyn": 0, "recip": 1, "static": 2, "cast": 3}
+STATIC_SCALE = 1.0 / 32.0  # the fixed activation scale of the static and cast quantizers
 QUANT_FLOOR = 1e-6  # smallest amax a scale is taken from (pallas_kernels.py:465, :503)
 SMEM_PER_BLOCK = 232_448  # opt-in dynamic shared memory of one H100 block
 MAX_HEAD_DIM = 128  # ATT_MAX_DH in csrc/attention_packed.cu
@@ -64,7 +82,29 @@ LAUNCHES: Dict[str, int] = {
     "gemm_int8_epilogue": 0,
     "fused_transformer_block_int8": 0,
     "fused_attention": 0,
+    # modes of the kernels above that only the block-variant bench runs;
+    # each launch also counts under its kernel's name
+    "attention_packed.q_round": 0,
+    "attention_packed.no_softmax": 0,
+    "gemm_bias_epilogue.bias_gelu_bf16": 0,
+    "gemm_bias_epilogue.bias32_residual": 0,
+    "gemm_int8_epilogue.dequant_bias_gelu_bf16": 0,
+    "gemm_int8_epilogue.dequant_bias_f32": 0,
+    "gemm_int8_epilogue.dequant_bias_gelu_round": 0,
+    "quant_rows.recip": 0,
+    "quant_rows.static": 0,
+    "quant_rows.cast": 0,
+    "layernorm_quant_rows.recip": 0,
+    "layernorm_quant_rows.static": 0,
+    "layernorm_quant_rows.cast": 0,
+    "layernorm_quant_rows.bf16_stats": 0,
+    # kernels of the block-variant bench
+    "attention_int8": 0,
+    "qkv_sum": 0,
 }
+# the modes the main paths run, counted under their kernel's name alone
+_MAIN_MODES = ("softmax", "bias", "bias_residual", "bias_gelu", "dequant_bias",
+               "dequant_bias_residual", "dequant_bias_gelu", "dyn")
 
 
 def reset_launch_counts() -> None:
@@ -74,6 +114,19 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def _count(kernel: str, *modes: str) -> None:
+    """One launch of ``kernel``, and one under ``kernel.mode`` for each of
+    its bench-only ``modes``; a mode with no counter raises."""
+    LAUNCHES[kernel] += 1
+    for mode in modes:
+        if mode in _MAIN_MODES:
+            continue
+        name = f"{kernel}.{mode}"
+        if name not in LAUNCHES:
+            raise KeyError(f"no launch counter for mode {mode!r} of {kernel}")
+        LAUNCHES[name] += 1
 
 
 def _stream() -> int:
@@ -137,26 +190,50 @@ def layernorm_rows(x, scale, bias, eps: float = LN_EPS):
         ),
         "layernorm_rows",
     )
-    LAUNCHES["layernorm_rows"] += 1
+    _count("layernorm_rows")
     return out
 
 
 # -- gemm_bias_epilogue ----------------------------------------------------------
 
 
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant rounded to ``like``'s dtype, as JAX casts a weakly
+    typed scalar to the dtype of the array it meets.  PyTorch would keep a
+    Python scalar in fp32 against a bf16 tensor."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def quick_gelu_rounded(hb):
+    """``hb * (1 / (1 + exp(-(hb * 1.702))))`` op by op in ``hb``'s dtype,
+    every op rounded and 1.702 rounded to that dtype first, as JAX evaluates
+    it on a bf16 array (``bench_block_variants.py:274``)."""
+    t = hb * _const(1.702, hb)
+    t = torch.exp(-t)
+    t = _const(1.0, hb) + t
+    t = _const(1.0, hb) / t
+    return hb * t
+
+
 def gemm_bias_epilogue_plain(a, w, bias, epilogue: str, residual=None):
     """``a (..., K) . w (K, N)`` with fp32 accumulation and the block
     kernel's epilogues:
 
-    - ``bias``:          T(T(acc) + b)                      (QKV)
-    - ``bias_residual``: T(residual + T(T(acc) + b))        (out-proj, proj)
-    - ``bias_gelu``:     T(QuickGELU(acc + f32(b))) in fp32  (fc)
+    - ``bias``:            T(T(acc) + b)                      (QKV)
+    - ``bias_residual``:   T(residual + T(T(acc) + b))        (out-proj, proj)
+    - ``bias_gelu``:       T(QuickGELU(acc + f32(b))) in fp32  (fc)
+    - ``bias_gelu_bf16``:  QuickGELU of T(acc + f32(b)) op by op in T
+    - ``bias32_residual``: T(residual + T(acc + b)), ``b`` fp32
     """
     dtype = a.dtype
     acc = torch.matmul(a.float(), w.float())  # bf16 products are exact in fp32
     if epilogue == "bias_gelu":
         h = acc + bias.float()
         return (h * torch.sigmoid(1.702 * h)).to(dtype)
+    if epilogue == "bias_gelu_bf16":
+        return quick_gelu_rounded((acc + bias.float()).to(dtype))
+    if epilogue == "bias32_residual":
+        return (residual.float() + (acc + bias).to(dtype).float()).to(dtype)
     y = (acc.to(dtype).float() + bias.float()).to(dtype)
     if epilogue == "bias_residual":
         y = (residual.float() + y.float()).to(dtype)
@@ -167,18 +244,21 @@ def gemm_bias_epilogue_plain(a, w, bias, epilogue: str, residual=None):
 
 def gemm_bias_epilogue(a, w, bias, epilogue: str, residual=None):
     """``a`` (..., K), ``w`` (K, N), ``bias`` (N,), all in the activation
-    dtype; ``residual`` (..., N) for ``bias_residual``."""
+    dtype (``bias`` fp32 for ``bias32_residual``); ``residual`` (..., N)
+    for the two residual epilogues."""
     if epilogue not in _EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; use {sorted(_EPILOGUES)}")
-    if (residual is None) != (epilogue != "bias_residual"):
-        raise ValueError("residual is given exactly for the bias_residual epilogue")
+    if (residual is None) != (epilogue not in _RESIDUAL_EPILOGUES):
+        raise ValueError(f"residual is given exactly for the {_RESIDUAL_EPILOGUES} epilogues")
     if not a.is_cuda:
         return gemm_bias_epilogue_plain(a, w, bias, epilogue, residual)
     k, n = w.shape
-    tensors = dict(a=a, w=w, bias=bias)
+    tensors = dict(a=a, w=w)
     if residual is not None:
         tensors["residual"] = residual
     _require_cuda("gemm_bias_epilogue", a.dtype, **tensors)
+    _require_on_card("gemm_bias_epilogue",
+                     torch.float32 if epilogue == "bias32_residual" else a.dtype, bias=bias)
     if a.shape[-1] != k or bias.shape != (n,):
         raise ValueError(f"gemm_bias_epilogue: a {tuple(a.shape)}, w {tuple(w.shape)}, "
                          f"bias {tuple(bias.shape)} do not chain")
@@ -198,22 +278,37 @@ def gemm_bias_epilogue(a, w, bias, epilogue: str, residual=None):
         ),
         "gemm_bias_epilogue",
     )
-    LAUNCHES["gemm_bias_epilogue"] += 1
+    _count("gemm_bias_epilogue", epilogue)
     return out
 
 
 # -- attention_packed ----------------------------------------------------------------
 
 
-def fused_attention_plain(q, k, v, causal: bool = False, length: Optional[int] = None):
+def fused_attention_plain(q, k, v, causal: bool = False, length: Optional[int] = None,
+                          mode: str = "softmax"):
     """Attention over head-major ``(B, H, L, dh)`` q, k, v with the TPU
     kernels' numerics (``pallas_kernels.py:65-96``, ``:160-183``): fp32
     scores of ``(q * dh^-0.5) . k^T``, keys at index >= ``length`` (default
     L) masked, and col > row when causal, softmax in fp32, the weights
-    rounded to v's dtype, PV accumulated in fp32 and rounded once."""
+    rounded to v's dtype, PV accumulated in fp32 and rounded once.
+
+    The bench's modes (``bench_block_variants.py:212``, ``:657-665``):
+    ``q_round`` scales q in its own dtype, T(q * T(dh^-0.5)), before the
+    fp32 scores; ``no_softmax`` does too, then takes weights T(s * 0.005)
+    over all L keys, with no mask and no softmax."""
+    if mode not in _ATTENTION_MODES:
+        raise ValueError(f"unknown attention mode {mode!r}; use {sorted(_ATTENTION_MODES)}")
     l, dh = q.shape[-2], q.shape[-1]
     length = l if length is None else length
-    s = torch.matmul(q.float() * dh ** -0.5, k.float().transpose(-1, -2))
+    if mode == "softmax":
+        qs = q.float() * dh ** -0.5
+    else:
+        qs = (q * _const(dh ** -0.5, q)).float()
+    s = torch.matmul(qs, k.float().transpose(-1, -2))
+    if mode == "no_softmax":
+        w = (s * 0.005).to(v.dtype)
+        return torch.matmul(w.float(), v.float()).to(v.dtype)
     col = torch.arange(l, device=q.device)
     mask = (col >= length)[None, :].expand(l, l)
     if causal:
@@ -225,23 +320,23 @@ def fused_attention_plain(q, k, v, causal: bool = False, length: Optional[int] =
     return torch.matmul(w.float(), v.float()).to(v.dtype)
 
 
+def _heads(t, n_head: int):
+    b, l, d = t.shape
+    return t.reshape(b, l, n_head, d // n_head).transpose(1, 2)
+
+
 def fused_attention_packed_plain(q, k, v, n_head: int, causal: bool = False,
-                                 length: Optional[int] = None):
+                                 length: Optional[int] = None, mode: str = "softmax"):
     """Multi-head attention over packed ``(B, L, D)`` q, k, v with the TPU
     kernel's numerics (``pallas_kernels.py:145-183``): the heads are column
     blocks of D, each run through :func:`fused_attention_plain`."""
     b, l, d = q.shape
-    dh = d // n_head
-
-    def heads(t):
-        return t.reshape(b, l, n_head, dh).transpose(1, 2)
-
-    o = fused_attention_plain(heads(q), heads(k), heads(v), causal, length)
+    o = fused_attention_plain(*(_heads(t, n_head) for t in (q, k, v)), causal, length, mode)
     return o.transpose(1, 2).reshape(b, l, d)
 
 
 def _launch_attention(q, k, v, strides, out, out_strides, b: int, l: int, n_head: int,
-                      dh: int, length: int, causal: bool) -> None:
+                      dh: int, length: int, causal: bool, mode: str = "softmax") -> None:
     """Launch ``csrc/attention_packed.cu`` on q, k, v sharing the (batch,
     head, row) element ``strides``, into ``out`` with ``out_strides``."""
     if dh > MAX_HEAD_DIM:
@@ -257,40 +352,49 @@ def _launch_attention(q, k, v, strides, out, out_strides, b: int, l: int, n_head
     _build.check(
         lib.attention_packed(
             dtype, q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, out.data_ptr(),
-            *out_strides, b, l, n_head, dh, length, int(causal), dh ** -0.5, _stream(),
+            *out_strides, b, l, n_head, dh, length, int(causal), _ATTENTION_MODES[mode],
+            dh ** -0.5, _stream(),
         ),
         "attention_packed",
     )
 
 
-def attention_packed(q, k, v, n_head: int, causal: bool = False,
-                     length: Optional[int] = None):
-    """The attention kernel on ``(B, L, D)`` views that share one row
-    stride: separate contiguous tensors (K1) or column slices of a fused
-    ``(B, L, 3D)`` QKV buffer (K2, K3).  Returns a contiguous ``(B, L, D)``."""
-    if not q.is_cuda:
-        return fused_attention_packed_plain(q, k, v, n_head, causal, length)
+def _check_packed(name: str, q, k, v, n_head: int):
+    """(dh, row stride) of ``(B, L, D)`` CUDA views that share one row stride."""
     b, l, d = q.shape
     if d % n_head:
         raise ValueError(f"n_head={n_head} must divide feature dim {d}")
-    dh = d // n_head
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported")
+    ld = q.stride(1)
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name}: {arg} must be a CUDA {q.dtype} {tuple(q.shape)}")
+        if t.stride() != (l * ld, ld, 1):
+            raise ValueError(f"{name}: {arg} strides {t.stride()} are not "
+                             f"(L*ld, ld, 1) with the shared row stride ld={ld}")
+    return d // n_head, ld
+
+
+def attention_packed(q, k, v, n_head: int, causal: bool = False,
+                     length: Optional[int] = None, mode: str = "softmax"):
+    """The attention kernel on ``(B, L, D)`` views that share one row
+    stride: separate contiguous tensors (K1) or column slices of a fused
+    ``(B, L, 3D)`` QKV buffer (K2, K3).  Returns a contiguous ``(B, L, D)``.
+    ``mode``: see :func:`fused_attention_plain`."""
+    if mode not in _ATTENTION_MODES:
+        raise ValueError(f"unknown attention mode {mode!r}; use {sorted(_ATTENTION_MODES)}")
+    if not q.is_cuda:
+        return fused_attention_packed_plain(q, k, v, n_head, causal, length, mode)
+    b, l, d = q.shape
+    dh, ld = _check_packed("attention_packed", q, k, v, n_head)
     length = l if length is None else length
     if not 1 <= length <= l:
         raise ValueError(f"length={length} must lie in [1, {l}]")
-    dtype = q.dtype
-    if dtype not in _DTYPES:
-        raise TypeError(f"attention_packed: dtype {dtype} not supported")
-    ld = q.stride(1)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.dtype != dtype or t.shape != q.shape:
-            raise ValueError(f"attention_packed: {name} must be a CUDA {dtype} {tuple(q.shape)}")
-        if t.stride() != (l * ld, ld, 1):
-            raise ValueError(f"attention_packed: {name} strides {t.stride()} are not "
-                             f"(L*ld, ld, 1) with the shared row stride ld={ld}")
-    out = torch.empty(b, l, d, dtype=dtype, device=q.device)
+    out = torch.empty(b, l, d, dtype=q.dtype, device=q.device)
     _launch_attention(q, k, v, (l * ld, dh, ld), out, (l * d, dh, d), b, l, n_head, dh,
-                      length, causal)
-    LAUNCHES["attention_packed"] += 1
+                      length, causal, mode)
+    _count("attention_packed", mode)
     return out
 
 
@@ -300,7 +404,7 @@ def fused_attention_packed(q, k, v, n_head: int, causal: bool = False):
     if not q.is_cuda:
         return fused_attention_packed_plain(q, k, v, n_head, causal)
     out = attention_packed(q, k, v, n_head, causal)
-    LAUNCHES["fused_attention_packed"] += 1
+    _count("fused_attention_packed")
     return out
 
 
@@ -319,7 +423,7 @@ def fused_attention(q, k, v, causal: bool = False):
     out = torch.empty_like(q)
     strides = (h * l * dh, l * dh, dh)
     _launch_attention(q, k, v, strides, out, strides, b, l, h, dh, l, causal)
-    LAUNCHES["fused_attention"] += 1
+    _count("fused_attention")
     return out
 
 
@@ -389,7 +493,7 @@ def fused_transformer_block(x, block: dict, n_head: int, causal: bool = False,
         x, _block_args(block, x.dtype), n_head, causal, length,
         layernorm_rows, gemm_bias_epilogue, attention_packed,
     )
-    LAUNCHES["fused_transformer_block"] += 1
+    _count("fused_transformer_block")
     return out
 
 
@@ -449,22 +553,57 @@ def quantize_block(block: dict) -> dict:
 # -- quant_rows ------------------------------------------------------------------------
 
 
-def quant_rows_plain(x):
+def quant_rows_plain(x, mode: str = "dyn"):
     """Per-row symmetric int8 (``pallas_kernels.py:500-505``): ``(..., W)``
     in any float dtype -> (int8 ``(..., W)``, fp32 scales ``(..., 1)``),
-    scale = max(amax, 1e-6) / 127."""
+    scale = max(amax, 1e-6) / 127.
+
+    The bench's quantizers (``bench_block_variants.py:758-791``):
+    ``recip`` q = round(x * (127 / amax)), scale = amax * f32(1/127);
+    ``static`` q = clip(round(x * 32)), scale 1/32; ``cast`` x * 32
+    truncated toward zero and saturated to [-128, 127], NaN -> 0 (XLA's
+    f32 -> s8 convert), scale 1/32."""
+    if mode not in _QUANT_MODES:
+        raise ValueError(f"unknown quantizer {mode!r}; use {sorted(_QUANT_MODES)}")
     xf = x.float()
-    scale = _div127(xf.abs().amax(dim=-1, keepdim=True).clamp_min(QUANT_FLOOR))
+    if mode in ("static", "cast"):
+        t = xf * 32.0
+        if mode == "static":
+            q = _round_to_int8(t)
+        else:
+            q = torch.trunc(torch.nan_to_num(t, nan=0.0)).clamp_(-128, 127).to(torch.int8)
+        return q, torch.full((*x.shape[:-1], 1), STATIC_SCALE, dtype=torch.float32, device=x.device)
+    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(QUANT_FLOOR)
+    if mode == "recip":
+        r = torch.full_like(amax, 127.0) / amax  # a true division, as 127.0 / amax in JAX
+        return _round_to_int8(xf * r), amax * (1.0 / 127.0)
+    scale = _div127(amax)
     return _round_to_int8(xf / scale), scale
 
 
-def layernorm_quant_rows_plain(x, scale, bias, eps: float = LN_EPS):
+def _layernorm_bf16_stats(x, scale, bias, eps: float):
+    """int8lnb's LayerNorm (``bench_block_variants.py:798-807``): mean and
+    variance in ``x``'s dtype (fp32 sums, each result rounded), c = T(x -
+    mean) and T(c * c) rounded, then rsqrt and the affine in fp32."""
+    n = torch.tensor(float(x.shape[-1]), device=x.device)
+    mean = (x.float().sum(dim=-1, keepdim=True) / n).to(x.dtype)
+    c = x - mean
+    var = ((c * c).float().sum(dim=-1, keepdim=True) / n).to(x.dtype)
+    return c.float() * torch.rsqrt(var.float() + eps) * scale.float() + bias.float()
+
+
+def layernorm_quant_rows_plain(x, scale, bias, eps: float = LN_EPS, mode: str = "dyn",
+                               bf16_stats: bool = False):
     """K3's LayerNorm (``pallas_kernels.py:527-534``), left in fp32, then
-    quantized per row: it is not rounded to the activation dtype as in K2."""
-    return quant_rows_plain(_layernorm_f32(x, scale, bias, eps))
+    quantized per row: it is not rounded to the activation dtype as in K2.
+    ``mode``: the quantizer (:func:`quant_rows_plain`); ``bf16_stats``: the
+    statistics in ``x``'s dtype (bf16 on the bench), int8lnb's LayerNorm."""
+    ln = _layernorm_bf16_stats if bf16_stats else _layernorm_f32
+    return quant_rows_plain(ln(x, scale, bias, eps), mode)
 
 
-def _launch_quant_rows(name: str, x, scale, bias, eps: float):
+def _launch_quant_rows(name: str, x, scale, bias, eps: float, mode: str = "dyn",
+                       bf16_stats: bool = False):
     w = x.shape[-1]
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(*x.shape[:-1], 1, dtype=torch.float32, device=x.device)
@@ -474,34 +613,40 @@ def _launch_quant_rows(name: str, x, scale, bias, eps: float):
             _DTYPES[x.dtype], x.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
-            q.data_ptr(), s.data_ptr(), x.numel() // w, w, eps, _stream(),
+            q.data_ptr(), s.data_ptr(), x.numel() // w, w, eps, _QUANT_MODES[mode],
+            int(bf16_stats), _stream(),
         ),
         name,
     )
-    LAUNCHES[name] += 1
+    _count(name, mode, *(("bf16_stats",) if bf16_stats else ()))
     return q, s
 
 
-def quant_rows(x):
+def quant_rows(x, mode: str = "dyn"):
     """``x`` (..., W) in bf16 or fp32 -> (int8 (..., W), fp32 (..., 1)):
-    ``csrc/quant_rows.cu`` in mode (b)."""
+    ``csrc/quant_rows.cu`` in mode (b), with the quantizer ``mode``."""
+    if mode not in _QUANT_MODES:
+        raise ValueError(f"unknown quantizer {mode!r}; use {sorted(_QUANT_MODES)}")
     if not x.is_cuda:
-        return quant_rows_plain(x)
+        return quant_rows_plain(x, mode)
     _require_cuda("quant_rows", x.dtype, x=x)
-    return _launch_quant_rows("quant_rows", x, None, None, 0.0)
+    return _launch_quant_rows("quant_rows", x, None, None, 0.0, mode)
 
 
-def layernorm_quant_rows(x, scale, bias, eps: float = LN_EPS):
+def layernorm_quant_rows(x, scale, bias, eps: float = LN_EPS, mode: str = "dyn",
+                         bf16_stats: bool = False):
     """``x`` (..., D) in the activation dtype, ``scale``/``bias`` (D,) fp32
     -> the quantized fp32 LayerNorm: ``csrc/quant_rows.cu`` in mode (a)."""
+    if mode not in _QUANT_MODES:
+        raise ValueError(f"unknown quantizer {mode!r}; use {sorted(_QUANT_MODES)}")
     if not x.is_cuda:
-        return layernorm_quant_rows_plain(x, scale, bias, eps)
+        return layernorm_quant_rows_plain(x, scale, bias, eps, mode, bf16_stats)
     d = x.shape[-1]
     _require_cuda("layernorm_quant_rows", x.dtype, x=x)
     _require_on_card("layernorm_quant_rows", torch.float32, scale=scale, bias=bias)
     if scale.shape != (d,) or bias.shape != (d,):
         raise ValueError(f"layernorm_quant_rows: scale/bias must be ({d},)")
-    return _launch_quant_rows("layernorm_quant_rows", x, scale, bias, eps)
+    return _launch_quant_rows("layernorm_quant_rows", x, scale, bias, eps, mode, bf16_stats)
 
 
 # -- gemm_int8_epilogue -------------------------------------------------------------------
@@ -526,11 +671,22 @@ def gemm_int8_epilogue_plain(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: tor
     - ``dequant_bias_residual``: T(f32(residual) + f32(T(y)))   (out-proj, proj)
     - ``dequant_bias_gelu``:     y * sigmoid(1.702 y) in fp32   (fc)
 
+    and the bench's (``bench_block_variants.py:516-523``, ``:880-894``):
+
+    - ``dequant_bias_gelu_bf16``:  QuickGELU of T(y) op by op in T
+    - ``dequant_bias_f32``:        y in fp32
+    - ``dequant_bias_gelu_round``: T(y * sigmoid(1.702 y))
+
     where ``y = f32(acc) * a_s * w_s + bias`` in fp32.
     """
     y = int8_matmul_plain(a_q, a_s, w_q.t(), w_s) + bias
-    if epilogue == "dequant_bias_gelu":
-        return y * torch.sigmoid(1.702 * y)
+    if epilogue == "dequant_bias_f32":
+        return y
+    if epilogue == "dequant_bias_gelu_bf16":
+        return quick_gelu_rounded(y.to(dtype))
+    if epilogue in ("dequant_bias_gelu", "dequant_bias_gelu_round"):
+        h = y * torch.sigmoid(1.702 * y)
+        return h if epilogue == "dequant_bias_gelu" else h.to(dtype)
     if epilogue == "dequant_bias":
         return y.to(dtype)
     if epilogue == "dequant_bias_residual":
@@ -543,7 +699,8 @@ def gemm_int8_epilogue(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: torch.dty
     """``csrc/gemm_int8_epilogue.cu``: ``a_q`` (..., K) int8, ``a_s`` its
     fp32 row scales (..., 1), ``w_q`` (N, K) int8, ``w_s``/``bias`` (N,)
     fp32, ``residual`` (..., N) in ``dtype`` for ``dequant_bias_residual``.
-    The output is in ``dtype``, or fp32 for ``dequant_bias_gelu``."""
+    The output is in ``dtype``, or fp32 for ``dequant_bias_gelu`` and
+    ``dequant_bias_f32``."""
     if epilogue not in _INT8_EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; use {sorted(_INT8_EPILOGUES)}")
     if (residual is None) != (epilogue != "dequant_bias_residual"):
@@ -561,7 +718,7 @@ def gemm_int8_epilogue(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: torch.dty
         raise ValueError(f"{name}: a_q {tuple(a_q.shape)}, a_s {tuple(a_s.shape)}, w_q "
                          f"{tuple(w_q.shape)}, w_s {tuple(w_s.shape)}, bias {tuple(bias.shape)} "
                          f"do not chain")
-    out_dtype = torch.float32 if epilogue == "dequant_bias_gelu" else dtype
+    out_dtype = torch.float32 if epilogue in _FP32_OUT_EPILOGUES else dtype
     out = torch.empty(*a_q.shape[:-1], n, dtype=out_dtype, device=a_q.device)
     if residual is not None:
         _require_on_card(name, dtype, residual=residual)
@@ -577,7 +734,7 @@ def gemm_int8_epilogue(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: torch.dty
         ),
         name,
     )
-    LAUNCHES[name] += 1
+    _count(name, epilogue)
     return out
 
 
@@ -628,5 +785,104 @@ def fused_transformer_block_int8(x, qblock: dict, n_head: int, causal: bool = Fa
         x, qblock, n_head, causal, length, layernorm_quant_rows, quant_rows,
         gemm_int8_epilogue, attention_packed,
     )
-    LAUNCHES["fused_transformer_block_int8"] += 1
+    _count("fused_transformer_block_int8")
+    return out
+
+
+# -- the block-variant bench's own kernels ---------------------------------------------------
+
+
+def qkv_sum_plain(qkv):
+    """``q + k + v`` over the three column slices of ``(..., 3D)``, two adds
+    in its dtype (``bench_block_variants.py:583``, ``:645``, ``:828``)."""
+    d = qkv.shape[-1] // 3
+    return qkv[..., :d] + qkv[..., d:2 * d] + qkv[..., 2 * d:]
+
+
+def qkv_sum(qkv):
+    """``csrc/qkv_sum.cu``: ``qkv`` (..., 3D) contiguous -> (..., D)."""
+    if not qkv.is_cuda:
+        return qkv_sum_plain(qkv)
+    _require_cuda("qkv_sum", qkv.dtype, qkv=qkv)
+    if qkv.shape[-1] % 3:
+        raise ValueError(f"qkv_sum: last dim {qkv.shape[-1]} is not 3D")
+    d = qkv.shape[-1] // 3
+    out = torch.empty(*qkv.shape[:-1], d, dtype=qkv.dtype, device=qkv.device)
+    rows = qkv.numel() // (3 * d)
+    _build.check(
+        _build.load_library().qkv_sum(_DTYPES[qkv.dtype], qkv.data_ptr(), out.data_ptr(), rows,
+                                      d, _stream()),
+        "qkv_sum",
+    )
+    _count("qkv_sum")
+    return out
+
+
+def _int8_codes(t, amax):
+    """``clip(round(t * (127 / amax)), +-127)`` with a true division, kept in
+    fp32 (``bench_block_variants.py:1030-1031``, ``:1048``)."""
+    return torch.round(t * (torch.full_like(amax, 127.0) / amax)).clamp_(-127, 127)
+
+
+def attention_int8_plain(q, k, v, n_head: int, length: Optional[int] = None, group: int = 1):
+    """``make_kernel_int8s``'s attention core (``bench_block_variants.py:
+    1023-1054``) over packed ``(B, L, D)`` q, k, v: per-row int8 q and k,
+    an exact int32 score dot rescaled as ``(f32(s) * (q_amax * f32(scale /
+    127))) * (k_amax * f32(1/127))``, keys >= ``length`` masked, fp32
+    softmax, weights ``round(w * 127)``, v in int8 at one amax per head over
+    each ``group`` of consecutive batch elements (all L rows, padded ones
+    included: the TPU grid's block), an exact int32 PV dot and
+    ``T(f32(o) * (v_amax / 16129))``."""
+    b, l, d = q.shape
+    if b % group:
+        raise ValueError(f"attention_int8: batch {b} is not a multiple of group {group}")
+    dh = d // n_head
+    length = l if length is None else length
+    qh, kh, vh = (_heads(t, n_head).float() for t in (q, k, v))  # (B, H, L, dh)
+    q_amax = qh.abs().amax(dim=-1, keepdim=True).clamp_min(QUANT_FLOOR)
+    k_amax = kh.abs().amax(dim=-1, keepdim=True).clamp_min(QUANT_FLOOR)
+    # int32 sums, exact in float64
+    s_int = torch.matmul(_int8_codes(qh, q_amax).double(),
+                         _int8_codes(kh, k_amax).double().transpose(-1, -2)).float()
+    s = s_int * (q_amax * (dh ** -0.5 / 127.0)) * (k_amax.transpose(-1, -2) * (1.0 / 127.0))
+    s = s.masked_fill(torch.arange(l, device=q.device) >= length, -1e30)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w_q = torch.round(e / e.sum(dim=-1, keepdim=True) * 127.0)
+    v_amax = vh.reshape(b // group, group, n_head, l, dh).abs().amax(dim=(1, 3, 4))
+    v_amax = v_amax.clamp_min(QUANT_FLOOR).repeat_interleave(group, 0)[:, :, None, None]
+    o_int = torch.matmul(w_q.double(), _int8_codes(vh, v_amax).double()).float()
+    o = o_int * (v_amax / torch.tensor(127.0 * 127.0, device=q.device))
+    return o.to(v.dtype).transpose(1, 2).reshape(b, l, d)
+
+
+def attention_int8(q, k, v, n_head: int, length: Optional[int] = None, group: int = 1):
+    """``csrc/attention_int8.cu`` on ``(B, L, D)`` views that share one row
+    stride (the column slices of a fused QKV buffer).  ``group``: the batch
+    elements that share one v scale per head (the TPU grid's block)."""
+    if not q.is_cuda:
+        return attention_int8_plain(q, k, v, n_head, length, group)
+    b, l, d = q.shape
+    dh, ld = _check_packed("attention_int8", q, k, v, n_head)
+    length = l if length is None else length
+    if not 1 <= length <= l:
+        raise ValueError(f"length={length} must lie in [1, {l}]")
+    if dh > MAX_HEAD_DIM or dh % 4:
+        raise ValueError(f"attention_int8: head dim {dh} must be a multiple of 4 <= {MAX_HEAD_DIM}")
+    if group < 1 or b % group or b > 65535:
+        raise ValueError(f"attention_int8: batch {b} must be a multiple of group {group}, <= 65535")
+    lib = _build.load_library()
+    smem = lib.attention_int8_smem_bytes(l, dh)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"attention_int8: L={l}, dh={dh} needs {smem} B of shared memory")
+    out = torch.empty(b, l, d, dtype=q.dtype, device=q.device)
+    vamax = torch.empty(b // group, n_head, dtype=torch.float32, device=q.device)
+    _build.check(
+        lib.attention_int8(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), l * ld, dh, ld,
+            out.data_ptr(), l * d, dh, d, b, l, n_head, dh, length, group, vamax.data_ptr(),
+            dh ** -0.5 / 127.0, _stream(),
+        ),
+        "attention_int8",
+    )
+    _count("attention_int8")
     return out

@@ -40,6 +40,9 @@ def _module_level(tree):
 
 def test_port_has_files():
     assert len(PORT_FILES) > 20
+    rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("ops/block_variants.py", "scripts/bench_block_variants.py", "ops/kernels.py"):
+        assert "protoclip_tpu_torch/" + module in rel, module
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

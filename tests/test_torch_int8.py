@@ -573,10 +573,22 @@ def test_preprocess_copy_matches_jax(image_tree):
 
 
 def test_chip_smoke_lists_every_kernel():
+    """Every launch counter, and every site of the block-variant bench, has
+    a row in the contract line, whose source exists and whose TPU kernel is
+    a line of the Pallas module or of the bench; the bench's rows come from
+    its variants path."""
     import chip_smoke
+    from protoclip_tpu_torch.ops import block_variants
 
-    assert set(chip_smoke.KERNEL_SOURCES) == set(kernels.LAUNCHES)
+    assert not set(kernels.LAUNCHES) & set(block_variants.SITE_CALLS)
+    assert set(chip_smoke.KERNEL_SOURCES) == set(kernels.LAUNCHES) | set(block_variants.SITE_CALLS)
     for name, (source, replaces, path) in chip_smoke.KERNEL_SOURCES.items():
         assert os.path.exists(source), name
-        assert replaces.startswith("protoclip_tpu/ops/pallas_kernels.py:"), name
-        assert path in ("main", "main_int8", "check"), name
+        file, line = replaces.split(":")
+        assert file in ("protoclip_tpu/ops/pallas_kernels.py", "scripts/bench_block_variants.py"), name
+        with open(file) as fh:
+            assert 0 < int(line) <= len(fh.readlines()), name
+        if file.startswith("scripts/"):
+            assert path == "variants", name
+        else:
+            assert path in ("main", "main_int8", "check"), name
