@@ -8,10 +8,16 @@ Run from the repository root with no arguments::
 Phases, one JSON line each on stdout:
 
 1. device  - require CUDA; the card's name and power limit from nvidia-smi.
-2. build   - compile ``protoclip_tpu_torch/csrc/*.cu`` with nvcc (sm_90a).
+2. build   - compile ``protoclip_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
+             the registers and spills ptxas reports for the tensor-core
+             attention and GEMM kernels.
 3. check   - every CUDA kernel, and the K1, K2, K3 and K4 entries, against
              its plain PyTorch version on the card at the ViT-B/16, text,
-             ViT-L/14 and ViT-B/32 block geometries.
+             ViT-L/14 and ViT-B/32 block geometries; then the ragged edges
+             of the bf16 attention (L = 1, 16, 17, 77 causal, 197, 257 at
+             dh = 32, 64, 128, length < L, both bench modes, all three
+             stride layouts) and of the GEMM (M = 8 x 197, K = 200, N = 192,
+             each epilogue).
 4. main    - zero-shot Proto-CLIP on ViT-B/16 at full width with random
              weights: memory banks, prototypes, the alpha/beta sweep and the
              accuracy, with the kernels' launch counts of that run, and the
@@ -36,6 +42,14 @@ Phases, one JSON line each on stdout:
              at the bench geometry (variant_times).
 8. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches, error, times and bound.
+
+The bf16 paths of the two kernels that carry the blocks run on the tensor
+cores: ``attention_packed.cu`` as mma.sync m16n8k16 (Q, K, V through
+cp.async into shared memory, a two-pass softmax over the whole row with
+the weights normalised before their bf16 rounding, P fed from registers)
+and ``gemm_bias_epilogue.cu`` as wgmma m64n128k16 on tiles that TMA brings
+through a 3-stage mbarrier ring, W read N-major through the descriptor's
+transpose bit; fp32 stays on the exact SIMT kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without CUDA the script exits non-zero at once.
@@ -106,14 +120,46 @@ def phase_device(torch):
 # -- 2. build ------------------------------------------------------------------
 
 
+TENSOR_CORE_KERNELS = ("attention_bf16_mma", "gemm_bf16_wgmma")
+
+
+def ptxas_usage(log):
+    """{kernel<template args>: {"registers": n, "spill_bytes": n}} of the
+    tensor-core kernels, from nvcc's ``-Xptxas -v`` lines in the build log."""
+    import re
+
+    usage, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = next((k for k in TENSOR_CORE_KERNELS if k in m.group(1)), None)
+            args = re.search(r"I((?:L[ij]n?\d+E)+)E", m.group(1)) if name else None
+            entry = None if name is None else name + "<" + ",".join(
+                a.replace("n", "-") for a in re.findall(r"L[ij](n?\d+)E", args.group(1))) + ">"
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            usage.setdefault(entry, {})["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(entry, {})["registers"] = int(m.group(1))
+    return usage
+
+
 def phase_build():
     from protoclip_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.build(force=True)
     _build.load_library()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": str(_build.BUILD_DIR / _build.LIB_NAME)})
+    seconds = round(time.perf_counter() - t0, 3)
+    usage = ptxas_usage((_build.BUILD_DIR / "build.log").read_text())
+    require(all(any(k.startswith(name) for k in usage) for name in TENSOR_CORE_KERNELS),
+            f"no ptxas report for the tensor-core kernels: {sorted(usage)}")
+    emit({"phase": "build", "seconds": seconds, "library": str(_build.BUILD_DIR / _build.LIB_NAME),
+          "ptxas": usage})
 
 
 # -- 3. kernels against their plain versions -----------------------------------
@@ -371,12 +417,63 @@ def phase_check(torch, np):
                     record_exact("gemm_int8_epilogue." + epi, geom, dtype, [got], [want])
             del p, qb, x, xp, h, hid_in, qkv, sl, q, k, v, qh, kh, vh, attn, hid32
             torch.cuda.empty_cache()
+    check_edges(torch, np_rng, device, record)
     for r in rows:
         emit({"phase": "check", **r})
     bad = [r for r in rows if not r["ok"]]
     require(not bad, f"{len(bad)} kernel checks failed: {bad}")
     emit({"phase": "check", "cases": len(rows), "all_ok": True})
     return rows
+
+
+# (L, causal) and head dims of the attention's edges: one row, a 16-key
+# tile and one past it, the text block, the image lengths
+EDGE_LENGTHS = ((1, False), (16, False), (17, False), (77, True), (197, False), (257, False))
+EDGE_HEAD_DIMS = (32, 64, 128)
+EDGE_HEADS = 2
+
+
+def check_edges(torch, np_rng, device, record):
+    """The ragged edges of the tensor-core attention (``attention_packed``
+    at every mode and length < L on QKV slices, the K1 and K4 entries) and
+    of the GEMM (M = 8 x 197, K = 200, N = 192: no dimension a multiple of
+    its tile, each epilogue), at the check phase's bars."""
+    from protoclip_tpu_torch.ops import kernels as K
+
+    for dtype in (torch.bfloat16, torch.float32):
+        def randn(*shape, std=1.0, dt=dtype):
+            t = torch.from_numpy(np_rng.standard_normal(shape, dtype="float32") * std)
+            return t.to(device=device, dtype=dt)
+
+        for (L, causal), dh in ((lc, dh) for lc in EDGE_LENGTHS for dh in EDGE_HEAD_DIMS):
+            if dtype == torch.float32 and L == 257 and dh == 128:
+                continue  # beyond the exact fp32 kernel's shared memory
+            H, geom = EDGE_HEADS, f"edge_L{L}_dh{dh}"
+            d = H * dh
+            qkv = randn(3, L, 3 * d)
+            sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+            length = max(1, L - 5)
+            for mode in ("softmax", "q_round", "no_softmax"):
+                name = "attention_packed" + ("" if mode == "softmax" else "." + mode)
+                record(name, geom, dtype, K.attention_packed(*sl, H, causal, length, mode),
+                       K.fused_attention_packed_plain(*sl, H, causal, length, mode),
+                       length=length, causal=causal)
+            q, k, v = (t.contiguous() for t in sl)
+            record("fused_attention_packed", geom, dtype, K.fused_attention_packed(q, k, v, H, causal),
+                   K.fused_attention_packed_plain(q, k, v, H, causal), causal=causal)
+            qh, kh, vh = (t.reshape(3, L, H, dh).transpose(1, 2).contiguous() for t in sl)
+            record("fused_attention", geom, dtype, K.fused_attention(qh, kh, vh, causal),
+                   K.fused_attention_plain(qh, kh, vh, causal), causal=causal)
+        m, kk, n = 8 * 197, 200, 192
+        a, w = randn(8, 197, kk), randn(kk, n, std=kk ** -0.5)
+        res = randn(8, 197, n)
+        for epi in ("bias", "bias_residual", "bias_gelu", "bias_gelu_bf16", "bias32_residual"):
+            bias = randn(n, std=0.1, dt=torch.float32 if epi == "bias32_residual" else dtype)
+            r = res if epi in ("bias_residual", "bias32_residual") else None
+            name = "gemm_bias_epilogue" + ("." + epi if epi in ("bias_gelu_bf16", "bias32_residual")
+                                           else "")
+            record(name, f"edge_M{m}_K{kk}_N{n}", dtype, K.gemm_bias_epilogue(a, w, bias, epi, r),
+                   K.gemm_bias_epilogue_plain(a, w, bias, epi, r), gemm=epi)
 
 
 # -- 4-5. the main paths, bf16 and int8 ---------------------------------------------

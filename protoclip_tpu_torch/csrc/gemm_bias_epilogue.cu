@@ -24,18 +24,41 @@
 // 2*M*K*N flops over (M*K + K*N + M*N) values, hundreds of flops per byte
 // for M in the tens of thousands, above the ~295 flop/byte bf16 ridge.
 //
-// Design (simple first): bf16 runs on the tensor cores through WMMA
-// 16x16x16 fragments with fp32 accumulators.  A 256-thread block owns a
-// 128x128 output tile; each of its 8 warps owns 64x32 (4x2 fragments).
-// K advances in steps of 32 through padded shared-memory tiles, loaded with
-// 16-byte vectors where the rows allow it and element by element at ragged
-// edges (masked with zeros).  No cp.async pipeline, no wgmma, no TMA yet.
+// bf16 design: wgmma fed by TMA through an mbarrier ring.  A block owns a
+// 128x128 output tile; the grid is 1-D, N tiles fastest, so the blocks in
+// flight share their A rows in L2 and M is bounded by int only.  One
+// producer warp issues the TMA loads of a 3-stage ring (A 128x64 K-major,
+// W 64x128 as two 64x64 boxes, N-major; 128-byte swizzle; 32 KB a stage,
+// so two blocks fit an SM and one's epilogue overlaps the other's
+// products); full barriers count the bytes, empty barriers the 256
+// consumer threads.  Two consumer warpgroups each run wgmma.m64n128k16
+// over 64 rows into 64 fp32 registers a thread, one K step's products in
+// flight while the next is issued.  A is K-major (descriptor LBO unused,
+// SBO 1024 B: eight 128-byte rows); W is read N-major through the
+// descriptor's transpose bit, so it needs no copy (LBO 8192 B between the
+// two 64-column boxes, SBO 1024 B between groups of eight K rows); a K step
+// of 16 advances A by 32 bytes inside its swizzle atom and W by 16 rows.
+// TMA zero-fills reads beyond M, N and K, so ragged edges need no masking
+// before the products.  The epilogue runs in two steps over the idle ring:
+// each value from the accumulator's own layout (warp w of a warpgroup holds
+// rows 16w + lane/4 (+8), columns 8j + 2(lane%4) (+1)) takes its bias (read
+// once a column pair) and is rounded to bf16 into a padded staging tile;
+// then 16-byte pieces go out row by row, with the residual read in the
+// same pieces, masked at the M and N edges.  (Straight from the
+// accumulator layout, each warp store would write 4 bytes a thread over
+// eight rows: half of each 32-byte sector.)
+// The tensor maps are encoded on every call (a cache keyed by pointer
+// would be wrong under PyTorch's allocator, which reuses addresses) and
+// passed as __grid_constant__ parameters; cuTensorMapEncodeTiled comes from
+// the runtime's driver entry point, so nothing links against libcuda.
+// TMA needs 16-byte aligned bases and row strides: the wrapper admits K
+// and N that are multiples of 8 and aligned tensors.
+//
 // fp32 runs a plain SIMT tile (64x64, 4x4 outputs a thread) in exact fp32:
-// the tensor cores would round its operands to TF32.  The epilogue stages
-// each accumulator fragment through shared memory and writes element-wise
-// with the masks for ragged M and N.
-#include <mma.h>
+// the tensor cores would round its operands to TF32.
+#include <cuda.h>  // CUtensorMap and its enums: types only
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -44,7 +67,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 enum { EPI_BIAS = 0, EPI_BIAS_RESIDUAL = 1, EPI_BIAS_GELU = 2, EPI_BIAS_GELU_BF16 = 3,
        EPI_BIAS32_RESIDUAL = 4 };
@@ -57,141 +79,334 @@ constexpr int EPI_BLOCK = -1;
 template <typename T, int EPI>
 using bias_t = std::conditional_t<EPI == EPI_BIAS32_RESIDUAL, float, T>;
 
+template <int EPI>
+__device__ __forceinline__ bool has_residual(int epi) {
+  return EPI == EPI_BIAS32_RESIDUAL || (EPI == EPI_BLOCK && epi == EPI_BIAS_RESIDUAL);
+}
+
+// The output value of the fp32 accumulator `acc` with the bias `b`
+// (widened to fp32), before its rounding to T; for the two residual
+// epilogues, y = T(...) before the residual is added (add_residual).
 // EPI: EPI_BLOCK (then `epi` picks EPI_BIAS, EPI_BIAS_RESIDUAL or
 // EPI_BIAS_GELU), EPI_BIAS_GELU_BF16 or EPI_BIAS32_RESIDUAL.
 template <typename T, int EPI>
-__device__ __forceinline__ void epilogue_store(float acc, int epi,
-                                               const bias_t<T, EPI>* __restrict__ bias,
-                                               const T* __restrict__ resid, T* __restrict__ out,
-                                               long m, int n, int N) {
-  const long idx = m * N + n;
+__device__ __forceinline__ float epilogue_value(float acc, int epi, float b) {
   if constexpr (EPI == EPI_BIAS32_RESIDUAL) {
-    const float y = pck::round_to<T>(__fadd_rn(acc, bias[n]));
-    out[idx] = pck::from_f<T>(__fadd_rn(pck::to_f(resid[idx]), y));
+    return pck::round_to<T>(__fadd_rn(acc, b));
   } else if constexpr (EPI == EPI_BIAS_GELU_BF16) {
-    out[idx] = pck::from_f<T>(
-        pck::quick_gelu_rounded<T>(pck::round_to<T>(__fadd_rn(acc, pck::to_f(bias[n])))));
+    return pck::quick_gelu_rounded<T>(pck::round_to<T>(__fadd_rn(acc, b)));
   } else {
     if (epi == EPI_BIAS_GELU) {
-      const float h = acc + pck::to_f(bias[n]);
-      out[idx] = pck::from_f<T>(h * (1.f / (1.f + expf(-1.702f * h))));
-      return;
+      const float h = acc + b;
+      return h * (1.f / (1.f + expf(-1.702f * h)));
     }
-    float y = pck::round_to<T>(pck::round_to<T>(acc) + pck::to_f(bias[n]));
-    if (epi == EPI_BIAS_RESIDUAL) y = pck::to_f(resid[idx]) + y;
-    out[idx] = pck::from_f<T>(y);
+    return pck::round_to<T>(pck::round_to<T>(acc) + b);
   }
 }
 
-// -- bf16: WMMA tensor-core tile ---------------------------------------------
+// res + y in fp32, rounded by the caller: the residual epilogues' last op
+__device__ __forceinline__ float add_residual(float res, float y) { return __fadd_rn(res, y); }
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int A_LD = BK + 8;  // padded row strides (elements), 16-byte multiples
-constexpr int B_LD = BN + 8;
-constexpr int WMMA_THREADS = 256;
+// -- bf16: wgmma fed by TMA ----------------------------------------------------
+
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
+constexpr int CONSUMERS = 2;                      // warpgroups, 64 rows each
+constexpr int WGMMA_THREADS = CONSUMERS * 128 + 32;  // + one producer warp
+constexpr int A_BYTES = BM * BK * 2;              // 16 KB
+constexpr int B_HALF_BYTES = BK * 64 * 2;         // one 64-column box: 64 K rows x 128 B
+constexpr int STAGE_BYTES = A_BYTES + 2 * B_HALF_BYTES;
+constexpr int WGMMA_SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align to 1024
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int inner, int outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(outer)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// d += A (64x16, K-major) . B (16x128, N-major: transpose bit set)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Output staging for the epilogue, in the stage buffers once the products
+// are done: 128 rows of 128 bf16 values, each padded by 16 bytes so that the
+// accumulator layout's 4-byte writes hit 32 distinct banks.
+constexpr int OUT_LD = BN + 8;
+static_assert(BM * OUT_LD * 2 <= STAGES * STAGE_BYTES, "staging fits the ring");
+
+__device__ __forceinline__ void consumers_sync() {  // the 256 consumer threads
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
 
 template <int EPI>
-__global__ void __launch_bounds__(WMMA_THREADS)
-gemm_bf16_wmma(const bf16* __restrict__ A, const bf16* __restrict__ W,
-               const bias_t<bf16, EPI>* __restrict__ bias, const bf16* __restrict__ resid,
-               bf16* __restrict__ out, int M, int N, int K, int epi, int vec_a, int vec_b) {
-  __shared__ __align__(128) bf16 As[BM * A_LD];
-  __shared__ __align__(128) bf16 Bs[BK * B_LD];
-  __shared__ __align__(128) float Cs[WMMA_THREADS / 32][16 * 16];
+__global__ void __launch_bounds__(WGMMA_THREADS, 2)
+gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+                const bias_t<bf16, EPI>* __restrict__ bias, const bf16* __restrict__ resid,
+                bf16* __restrict__ out, int M, int N, int K, int epi, int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  // the swizzle pattern repeats every 1024 bytes: stage buffers start on it
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+  const int k_tiles = (K + BK - 1) / BK;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2;  // 0..1: 64-row half of the tile
-  const int wn = warp & 3;   // 0..3: 32-column quarter
-  const long m0 = (long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const bf16 zero = __float2bfloat16_rn(0.f);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), CONSUMERS * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: BM x BK, in 8-element chunks
-    for (int c = threadIdx.x; c < BM * BK / 8; c += WMMA_THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const long gm = m0 + r;
-      const int gk = k0 + kc;
-      bf16* dst = As + r * A_LD + kc;
-      if (vec_a && gm < M && gk + 8 <= K) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(A + gm * K + gk);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gm < M && gk + e < K) ? A[gm * K + gk + e] : zero;
+  const int wg = threadIdx.x >> 7;
+  if (wg == CONSUMERS) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == CONSUMERS * 128) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % STAGES;
+        const uint32_t stage = base + s * STAGE_BYTES, bar = smem_u32(&full[s]);
+        mbar_wait(smem_u32(&empty[s]), ((kt / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar, STAGE_BYTES);
+        tma_load_2d(stage, &tm_a, bar, kt * BK, m0);
+        tma_load_2d(stage + A_BYTES, &tm_w, bar, n0, kt * BK);
+        tma_load_2d(stage + A_BYTES + B_HALF_BYTES, &tm_w, bar, n0 + 64, kt * BK);
       }
     }
-    // W tile: BK x BN
-    for (int c = threadIdx.x; c < BK * BN / 8; c += WMMA_THREADS) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      bf16* dst = Bs + r * B_LD + nc;
-      if (vec_b && gk < K && gn + 8 <= N) {
-        *reinterpret_cast<uint4*>(dst) =
-            *reinterpret_cast<const uint4*>(W + (long)gk * N + gn);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          dst[e] = (gk < K && gn + e < N) ? W[(long)gk * N + gn + e] : zero;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * B_LD + wn * 32 + j * 16, B_LD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
-  float* cs = Cs[warp];
+  float d[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % STAGES;
+    const uint32_t a_s = base + s * STAGE_BYTES + wg * (64 * 128);  // this warpgroup's rows
+    const uint32_t b_s = base + s * STAGE_BYTES + A_BYTES;
+    mbar_wait(smem_u32(&full[s]), (kt / STAGES) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const long gm = m0 + wm * 64 + i * 16 + (e >> 4);
-        const int gn = n0 + wn * 32 + j * 16 + (e & 15);
-        if (gm < M && gn < N) epilogue_store<bf16, EPI>(cs[e], epi, bias, resid, out, gm, gn, N);
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16(d, smem_desc(a_s + kk * 32, 16, 1024),
+                       smem_desc(b_s + kk * 16 * 128, B_HALF_BYTES, 1024), 1);
+    wgmma_commit();
+    // keep this step's products in flight; the previous step's are done, so
+    // its stage goes back to the producer
+    wgmma_wait<1>();
+    if (kt > 0) mbar_arrive(smem_u32(&empty[(kt - 1) % STAGES]));
+  }
+  wgmma_wait<0>();
+
+  // Epilogue, 1: each value from the accumulator's layout (rows 16w +
+  // lane/4 (+8) of the warpgroup, columns 8j + 2(lane%4) (+1)) with its
+  // bias, rounded to bf16 into the staging tile.  Every load has landed and
+  // both warpgroups' products are done once they meet here.
+  consumers_sync();
+  bf16* stage_out = reinterpret_cast<bf16*>(smem_raw + (base - smem_u32(smem_raw)));
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int srow = wg * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    if (n0 + c < N) {  // N is even: the pair's second column is in too
+      float b0, b1;
+      if constexpr (EPI == EPI_BIAS32_RESIDUAL) {
+        const float2 bb = *reinterpret_cast<const float2*>(bias + n0 + c);
+        b0 = bb.x, b1 = bb.y;
+      } else {
+        const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n0 + c));
+        b0 = bb.x, b1 = bb.y;
       }
-      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(stage_out + (srow + 8 * h) * OUT_LD + c) =
+            __floats2bfloat162_rn(epilogue_value<bf16, EPI>(d[4 * j + 2 * h], epi, b0),
+                                  epilogue_value<bf16, EPI>(d[4 * j + 2 * h + 1], epi, b1));
     }
   }
+  consumers_sync();
+  // 2: 16-byte pieces, whole rows to neighbouring threads, with the
+  // residual read in the same pieces; rows past M and pieces past N skipped
+  const bool res_on = has_residual<EPI>(epi);
+  constexpr int PIECES = BN / 8;
+  for (int idx = threadIdx.x; idx < BM * PIECES; idx += CONSUMERS * 128) {
+    const int r = idx / PIECES, c = (idx % PIECES) * 8;
+    const long gr = (long)m0 + r;
+    if (gr < M && n0 + c < N) {
+      uint4 y = *reinterpret_cast<const uint4*>(stage_out + r * OUT_LD + c);
+      const long g = gr * N + n0 + c;
+      if (res_on) {
+        const uint4 rv = *reinterpret_cast<const uint4*>(resid + g);
+        __nv_bfloat162* yp = reinterpret_cast<__nv_bfloat162*>(&y);
+        const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&rv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 yf = __bfloat1622float2(yp[e]), rf = __bfloat1622float2(rp[e]);
+          yp[e] = __floats2bfloat162_rn(add_residual(rf.x, yf.x), add_residual(rf.y, yf.y));
+        }
+      }
+      *reinterpret_cast<uint4*>(out + g) = y;
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, from the runtime's driver entry point
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major bf16 matrix (outer, inner), read in boxes of (box_outer,
+// box_inner = 64: 128 bytes, the swizzle's width).
+bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
+              uint32_t box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int EPI>
+int launch_wgmma(const void* a, const void* w, const void* bias, const void* resid, void* out,
+                 int M, int N, int K, int epi, cudaStream_t s) {
+  CUtensorMap tm_a, tm_w;
+  if (!make_map(&tm_a, a, K, M, BM) || !make_map(&tm_w, w, N, K, BK))
+    return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (N + BN - 1) / BN;
+  const long long tiles = n_tiles * ((M + BM - 1) / BM);
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_wgmma<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WGMMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  gemm_bf16_wgmma<EPI><<<(unsigned)tiles, WGMMA_THREADS, WGMMA_SMEM, s>>>(
+      tm_a, tm_w, static_cast<const bias_t<bf16, EPI>*>(bias), static_cast<const bf16*>(resid),
+      static_cast<bf16*>(out), M, N, K, epi, (int)n_tiles);
+  return (int)cudaGetLastError();
 }
 
 // -- fp32: SIMT tile -------------------------------------------------------------
 
 constexpr int SBM = 64, SBN = 64, SBK = 16;
 
-template <typename T, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(256)
-gemm_simt(const T* __restrict__ A, const T* __restrict__ W,
-          const bias_t<T, EPI>* __restrict__ bias,
-          const T* __restrict__ resid, T* __restrict__ out, int M, int N, int K, int epi) {
+gemm_f32_simt(const float* __restrict__ A, const float* __restrict__ W,
+              const float* __restrict__ bias, const float* __restrict__ resid,
+              float* __restrict__ out, int M, int N, int K, int epi, int n_tiles) {
   __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
   __shared__ float Bs[SBK][SBN + 4];
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long m0 = (long)blockIdx.y * SBM;
-  const int n0 = blockIdx.x * SBN;
+  const long m0 = (long)(blockIdx.x / n_tiles) * SBM;
+  const int n0 = (blockIdx.x % n_tiles) * SBN;
   float acc[4][4] = {};
 
   for (int k0 = 0; k0 < K; k0 += SBK) {
@@ -199,12 +414,12 @@ gemm_simt(const T* __restrict__ A, const T* __restrict__ W,
       const int r = c / SBK, kk = c % SBK;
       const long gm = m0 + r;
       const int gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? pck::to_f(A[gm * K + gk]) : 0.f;
+      As[kk][r] = (gm < M && gk < K) ? A[gm * K + gk] : 0.f;
     }
     for (int c = threadIdx.x; c < SBK * SBN; c += 256) {
       const int kk = c / SBN, nn = c % SBN;
       const int gk = k0 + kk, gn = n0 + nn;
-      Bs[kk][nn] = (gk < K && gn < N) ? pck::to_f(W[(long)gk * N + gn]) : 0.f;
+      Bs[kk][nn] = (gk < K && gn < N) ? W[(long)gk * N + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -222,37 +437,39 @@ gemm_simt(const T* __restrict__ A, const T* __restrict__ W,
     __syncthreads();
   }
 
+  const bool res_on = has_residual<EPI>(epi);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long gm = m0 + ty * 4 + i;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
-      if (gm < M && gn < N) epilogue_store<T, EPI>(acc[i][j], epi, bias, resid, out, gm, gn, N);
+      if (gm < M && gn < N) {
+        const long idx = gm * N + gn;
+        const float y = epilogue_value<float, EPI>(acc[i][j], epi, bias[gn]);
+        out[idx] = res_on ? add_residual(resid[idx], y) : y;
+      }
     }
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+template <int EPI>
+int launch_simt(const void* a, const void* w, const void* bias, const void* resid, void* out,
+                int M, int N, int K, int epi, cudaStream_t s) {
+  const long long n_tiles = (N + SBN - 1) / SBN;
+  const long long tiles = n_tiles * ((M + SBM - 1) / SBM);
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  gemm_f32_simt<EPI><<<(unsigned)tiles, 256, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(resid), static_cast<float*>(out), M, N, K, epi, (int)n_tiles);
+  return (int)cudaGetLastError();
+}
 
 template <int EPI>
-void launch(int dtype, const void* a, const void* w, const void* bias, const void* resid,
-            void* out, int M, int N, int K, int epi, cudaStream_t s) {
-  if (dtype == PCK_BF16) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    const int vec_a = (K % 8 == 0) && aligned16(a);
-    const int vec_b = (N % 8 == 0) && aligned16(w);
-    gemm_bf16_wmma<EPI><<<grid, WMMA_THREADS, 0, s>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-        static_cast<const bias_t<bf16, EPI>*>(bias), static_cast<const bf16*>(resid),
-        static_cast<bf16*>(out), M, N, K, epi, vec_a, vec_b);
-  } else {
-    const dim3 grid((N + SBN - 1) / SBN, (M + SBM - 1) / SBM);
-    gemm_simt<float, EPI><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<const float*>(resid),
-        static_cast<float*>(out), M, N, K, epi);
-  }
+int launch(int dtype, const void* a, const void* w, const void* bias, const void* resid,
+           void* out, int M, int N, int K, int epi, cudaStream_t s) {
+  return dtype == PCK_BF16 ? launch_wgmma<EPI>(a, w, bias, resid, out, M, N, K, epi, s)
+                           : launch_simt<EPI>(a, w, bias, resid, out, M, N, K, epi, s);
 }
 
 }  // namespace
@@ -261,14 +478,14 @@ extern "C" int gemm_bias_epilogue(int dtype, const void* a, const void* w, const
                                   const void* resid, void* out, int M, int N, int K, int epi,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != PCK_BF16 && dtype != PCK_F32) return (int)cudaErrorInvalidValue;
-  if (epi == EPI_BIAS_GELU_BF16)
-    launch<EPI_BIAS_GELU_BF16>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
-  else if (epi == EPI_BIAS32_RESIDUAL)
-    launch<EPI_BIAS32_RESIDUAL>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
-  else if (epi >= EPI_BIAS && epi <= EPI_BIAS_GELU)
-    launch<EPI_BLOCK>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
-  else
+  if ((dtype != PCK_BF16 && dtype != PCK_F32) || M < 0 || N < 1 || K < 1 || N % 8 || K % 8)
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (M == 0) return 0;
+  if (epi == EPI_BIAS_GELU_BF16)
+    return launch<EPI_BIAS_GELU_BF16>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  if (epi == EPI_BIAS32_RESIDUAL)
+    return launch<EPI_BIAS32_RESIDUAL>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  if (epi >= EPI_BIAS && epi <= EPI_BIAS_GELU)
+    return launch<EPI_BLOCK>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  return (int)cudaErrorInvalidValue;
 }

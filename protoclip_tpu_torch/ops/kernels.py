@@ -68,8 +68,7 @@ QUANT_FLOOR = 1e-6  # smallest amax a scale is taken from (pallas_kernels.py:465
 SMEM_PER_BLOCK = 232_448  # opt-in dynamic shared memory of one H100 block
 MAX_HEAD_DIM = 128  # ATT_MAX_DH in csrc/attention_packed.cu
 LN_EPS = 1e-5
-# 65535 row tiles of 128 (bf16 WMMA) or 64 (fp32 SIMT) rows: csrc/gemm_bias_epilogue.cu
-_MAX_GEMM_ROWS = {torch.bfloat16: 65535 * 128, torch.float32: 65535 * 64}
+PIECE = 8  # elements the GEMM's and attention's sizes and strides are multiples of
 
 LAUNCHES: Dict[str, int] = {
     "layernorm_rows": 0,
@@ -150,6 +149,19 @@ def _require_on_card(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> 
             raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def require_pieces(name: str, sizes: Dict[str, int], tensors: Dict[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless every size is a multiple of 8 elements and
+    every tensor starts on a 16-byte boundary: the bf16 GEMM (TMA) and
+    attention (``cp.async``) move rows in whole 16-byte pieces.  A pure
+    function of the sizes and the tensors' addresses."""
+    for what, n in sizes.items():
+        if n % PIECE:
+            raise ValueError(f"{name}: {what}={n} is not a multiple of {PIECE}")
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} does not start on a 16-byte boundary")
 
 
 # -- layernorm_rows ------------------------------------------------------------
@@ -266,9 +278,8 @@ def gemm_bias_epilogue(a, w, bias, epilogue: str, residual=None):
     if residual is not None and residual.shape != out.shape:
         raise ValueError(f"gemm_bias_epilogue: residual {tuple(residual.shape)} "
                          f"!= output {tuple(out.shape)}")
+    require_pieces("gemm_bias_epilogue", {"K": k, "N": n}, {**tensors, "bias": bias})
     m = a.numel() // k
-    if m > _MAX_GEMM_ROWS[a.dtype]:
-        raise ValueError(f"gemm_bias_epilogue: {m} rows > {_MAX_GEMM_ROWS[a.dtype]} (grid y limit)")
     lib = _build.load_library()
     _build.check(
         lib.gemm_bias_epilogue(
@@ -343,6 +354,10 @@ def _launch_attention(q, k, v, strides, out, out_strides, b: int, l: int, n_head
         raise ValueError(f"attention_packed: head dim {dh} > {MAX_HEAD_DIM}")
     if b > 65535:
         raise ValueError(f"attention_packed: batch {b} > 65535 (grid z limit)")
+    names = ("batch stride", "head stride", "row stride")
+    require_pieces("attention_packed", {"dh": dh, **dict(zip(names, strides)),
+                                        **{"out " + n: st for n, st in zip(names, out_strides)}},
+                   {"q": q, "k": k, "v": v, "out": out})
     lib = _build.load_library()
     dtype = _DTYPES[q.dtype]
     smem = lib.attention_packed_smem_bytes(dtype, l, dh)

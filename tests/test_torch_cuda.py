@@ -155,6 +155,33 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         kernels.attention_packed(*(torch.zeros(1, 4, 256, device=cuda_device),) * 3, 1)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.attention_packed(*(torch.zeros(1, 600, 128, device=cuda_device),) * 3, 1)
+    # bf16 keeps Q's tile and all of K and V in shared memory: at dh=128 it
+    # takes L up to 352
+    lib = kernels._build.load_library()
+    assert lib.attention_packed_smem_bytes(1, 352, 128) <= kernels.SMEM_PER_BLOCK
+    assert lib.attention_packed_smem_bytes(1, 353, 128) > kernels.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.attention_packed(
+            *(torch.zeros(1, 353, 128, device=cuda_device, dtype=torch.bfloat16),) * 3, 1)
+    # 16-byte pieces: K, N, dh and strides in multiples of 8, aligned bases
+    def zb(*shape):
+        return torch.zeros(*shape, device=cuda_device, dtype=torch.bfloat16)
+
+    with pytest.raises(ValueError, match="K=68 is not a multiple of 8"):
+        kernels.gemm_bias_epilogue(zb(4, 68), zb(68, 8), zb(8), "bias")
+    with pytest.raises(ValueError, match="N=12 is not a multiple of 8"):
+        kernels.gemm_bias_epilogue(zb(4, 64), zb(64, 12), zb(12), "bias")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kernels.gemm_bias_epilogue(zb(4 * 64 + 1)[1:].view(4, 64), zb(64, 8), zb(8), "bias")
+    qkv = torch.zeros(2, 5, 3 * 36, device=cuda_device, dtype=torch.bfloat16)  # dh = 36
+    with pytest.raises(ValueError, match="dh=36 is not a multiple of 8"):
+        kernels.attention_packed(qkv[..., :36], qkv[..., 36:72], qkv[..., 72:], 1)
+    qkv = torch.zeros(2, 8, 3 * 64 + 4, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="row stride=196"):
+        kernels.attention_packed(qkv[..., :64], qkv[..., 64:128], qkv[..., 128:192], 1)
+    qkv = torch.zeros(2, 5, 3 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="stride|boundary"):
+        kernels.attention_packed(qkv[..., :64], qkv[..., 64:128], qkv[..., 128:192], 1)
     a_q = torch.zeros(4, 64, dtype=torch.int8, device=cuda_device)
     a_s = torch.ones(4, 1, device=cuda_device)
     w_q = torch.zeros(8, 64, dtype=torch.int8, device=cuda_device)
@@ -279,3 +306,64 @@ def test_cuda_bench_stacks_match_plain(cuda_device, name):
     rel_bar, cos_bar = (5e-2, 0.999) if "int8" in name else (2e-2, 0.9999)
     assert float((out - ref).abs().max()) / float(ref.abs().max()) < rel_bar
     assert float(out @ ref / (out.norm() * ref.norm())) > cos_bar
+
+
+def _packed_and_heads(qkv, h):
+    """The three layouts of one set of q, k, v: column slices of a fused
+    (B, L, 3D) buffer, three packed (B, L, D) tensors, and head-major
+    (B, H, L, dh) tensors."""
+    d = qkv.shape[-1] // 3
+    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+    packed = tuple(t.contiguous() for t in sl)
+    b, l, _ = qkv.shape
+    heads = tuple(t.reshape(b, l, h, d // h).transpose(1, 2).contiguous() for t in sl)
+    return sl, packed, heads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("L,causal", [(1, False), (16, False), (17, False), (77, True),
+                                      (197, False), (257, False)])
+def test_cuda_attention_edges_match_plain(cuda_device, L, causal, dh):
+    """The tensor-core attention's edges: a single row, one and a bit of a
+    16-key tile, the text block's causal L, the image lengths, dh padded to
+    32/64/128, a length below L, both bench modes, and all three stride
+    layouts (QKV slices, packed K1, head-major K4)."""
+    H = 2
+    g = torch.Generator(device=cuda_device).manual_seed(L * 1000 + dh)
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype == torch.float32 and L == 257 and dh == 128:
+            continue  # beyond the exact fp32 kernel's shared memory
+        qkv = torch.randn(3, L, 3 * H * dh, device=cuda_device, generator=g).to(dtype)
+        sl, packed, heads = _packed_and_heads(qkv, H)
+        for length in sorted({L, max(1, L - 5)}):
+            for mode in ("softmax", "q_round", "no_softmax"):
+                _assert_close(kernels.attention_packed(*sl, H, causal, length, mode),
+                              kernels.fused_attention_packed_plain(*sl, H, causal, length, mode),
+                              dtype)
+        _assert_close(kernels.fused_attention_packed(*packed, H, causal),
+                      kernels.fused_attention_packed_plain(*packed, H, causal), dtype)
+        _assert_close(kernels.fused_attention(*heads, causal),
+                      kernels.fused_attention_plain(*heads, causal), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("epilogue", ["bias", "bias_residual", "bias_gelu", "bias_gelu_bf16",
+                                      "bias32_residual"])
+def test_cuda_gemm_ragged_edges_match_plain(cuda_device, dtype, epilogue):
+    """The GEMM where no dimension is a multiple of its tile: M = 8 x 197
+    rows (not a multiple of 128), N = 192 (D = 64: half a 128-column tile),
+    K = 200 (not a multiple of the 64-deep K step); each epilogue at the
+    card's bars (the accumulator sums in another order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    m, k, n = 8 * 197, 200, 192
+    a = torch.randn(8, 197, k, device=cuda_device, generator=g).to(dtype)
+    w = (torch.randn(k, n, device=cuda_device, generator=g) * k ** -0.5).to(dtype)
+    bias = (torch.randn(n, device=cuda_device, generator=g) * 0.1).to(
+        torch.float32 if epilogue == "bias32_residual" else dtype)
+    res = (torch.randn(8, 197, n, device=cuda_device, generator=g).to(dtype)
+           if epilogue in ("bias_residual", "bias32_residual") else None)
+    out = kernels.gemm_bias_epilogue(a, w, bias, epilogue, res)
+    assert out.shape == (8, 197, n) and a.numel() // k == m
+    _assert_close(out, kernels.gemm_bias_epilogue_plain(a, w, bias, epilogue, res), dtype)

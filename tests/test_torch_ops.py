@@ -384,6 +384,52 @@ def test_wrappers_reject_bad_arguments(rng):
         kernels.fused_transformer_block(x, {}, 4, length=9)
 
 
+@pytest.mark.parametrize("sizes,offset,match", [
+    ({"K": 768, "N": 2304}, 0, None),
+    ({"K": 200, "N": 192}, 0, None),
+    ({"K": 100, "N": 192}, 0, "K=100 is not a multiple of 8"),
+    ({"dh": 64, "row stride": 2308}, 0, "row stride=2308"),
+    ({"dh": 64}, 1, "does not start on a 16-byte boundary"),
+    ({"dh": 64}, 8, None),
+])
+def test_piece_rule_is_a_function_of_sizes_and_addresses(sizes, offset, match):
+    """The bf16 GEMM (TMA) and attention (cp.async) move 16-byte pieces: the
+    wrappers admit sizes and strides in multiples of 8 elements and tensors
+    on 16-byte boundaries, decided on the CPU before any launch."""
+    base = torch.zeros(64, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    view = base[offset:]
+    if match is None:
+        kernels.require_pieces("k", sizes, {"a": view})
+    else:
+        with pytest.raises(ValueError, match=match):
+            kernels.require_pieces("k", sizes, {"a": view})
+
+
+def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
+    """chip_smoke.py's build line reports registers and spills per template
+    instantiation of the tensor-core kernels, from nvcc's -Xptxas -v."""
+    import chip_smoke
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__7efae599_19_attention_"
+        "packed_cu_b6d57c5318attention_bf16_mmaILi64ELi1EEEvPK13__nv_bfloat16' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN52_attention_bf16_mma",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__659883fd_21_gemm_bias_"
+        "epilogue_cu_a59d695715gemm_bf16_wgmmaILin1EEEv14CUtensorMap_st' for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 2 barriers, 48 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN54_gemm_f32_simtILi4EEEv' for 'sm_90a'",
+        "ptxas info    : Used 70 registers, used 1 barriers, 8704 bytes smem",
+    ])
+    assert chip_smoke.ptxas_usage(log) == {
+        "attention_bf16_mma<64,1>": {"registers": 128, "spill_bytes": 0},
+        "gemm_bf16_wgmma<-1>": {"registers": 90, "spill_bytes": 4},
+    }
+
+
 def test_sources_hash_tracks_every_source(tmp_path, monkeypatch):
     """The library is rebuilt when any .cu or .cuh changes."""
     csrc = tmp_path / "csrc"
