@@ -17,7 +17,9 @@ Phases, one JSON line each on stdout:
              of the bf16 attention (L = 1, 16, 17, 77 causal, 197, 257 at
              dh = 32, 64, 128, length < L, both bench modes, all three
              stride layouts) and of the GEMM (M = 8 x 197, K = 200, N = 192,
-             each epilogue).
+             each epilogue); of the int8 GEMM (M = 1, 8 x 197; K = 16 ...
+             4096; N = 8, 192, 2304; each epilogue, bit-exact) and of the
+             quantizer (W = 8 ... 4096, every quantizer and LayerNorm).
 4. main    - zero-shot Proto-CLIP on ViT-B/16 at full width with random
              weights: memory banks, prototypes, the alpha/beta sweep and the
              accuracy, with the kernels' launch counts of that run, and the
@@ -26,10 +28,12 @@ Phases, one JSON line each on stdout:
              load_clip quantizes, every layer is K3), plus the serving encode
              (io.make_encode_fn) on a fixed uint8 batch, with its own launch
              counts, held against the same fp32 CPU features.
-6. times   - each kernel, its plain version, one PyTorch library call for
-             the same function and the bound, at the main path's encode
-             batches (images B=256, prompts B=1024), and the encode rates in
-             bf16 (K2) and int8 (K3).
+6. times   - each kernel (CUDA events around one call, and its device
+             time: the same with the call queued behind a spinning kernel),
+             its plain version, one PyTorch library call for the same
+             function and the bound, at the main path's encode batches
+             (images B=256, prompts B=1024), and the encode rates in bf16
+             (K2) and int8 (K3).
 7. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over every variant at the full
@@ -49,7 +53,10 @@ cp.async into shared memory, a two-pass softmax over the whole row with
 the weights normalised before their bf16 rounding, P fed from registers)
 and ``gemm_bias_epilogue.cu`` as wgmma m64n128k16 on tiles that TMA brings
 through a 3-stage mbarrier ring, W read N-major through the descriptor's
-transpose bit; fp32 stays on the exact SIMT kernels.
+transpose bit; fp32 stays on the exact SIMT kernels.  The W8A8 block's
+GEMM (``gemm_int8_epilogue.cu``) runs wgmma m64n128k32 s8 on the same ring,
+for both activation dtypes, and its quantizer (``quant_rows.cu``) reads
+each row from device memory once.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before it; without CUDA the script exits non-zero at once.
@@ -120,7 +127,34 @@ def phase_device(torch):
 # -- 2. build ------------------------------------------------------------------
 
 
-TENSOR_CORE_KERNELS = ("attention_bf16_mma", "gemm_bf16_wgmma")
+TENSOR_CORE_KERNELS = ("attention_bf16_mma", "gemm_bf16_wgmma", "gemm_s8_wgmma")
+# builtin types (one letter in the Itanium mangling) that the kernels' templates take
+MANGLED_BUILTINS = {"f": "float"}
+
+
+def template_args(mangled, name):
+    """The template arguments of kernel ``name`` in its mangled symbol:
+    integers (``Li64E``, ``Lin1E``), named types (``13__nv_bfloat16``) and
+    builtin types (``f``), in order."""
+    import re
+
+    i = mangled.index(name + "I") + len(name) + 1
+    args = []
+    while mangled[i] != "E":
+        m = re.match(r"L[ij](n?)(\d+)E", mangled[i:])
+        if m:
+            args.append(("-" if m.group(1) else "") + m.group(2))
+            i += m.end()
+            continue
+        m = re.match(r"\d+", mangled[i:])
+        if m:
+            start = i + m.end()
+            args.append(mangled[start:start + int(m.group())])
+            i = start + int(m.group())
+            continue
+        args.append(MANGLED_BUILTINS[mangled[i]])
+        i += 1
+    return args
 
 
 def ptxas_usage(log):
@@ -132,10 +166,9 @@ def ptxas_usage(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next((k for k in TENSOR_CORE_KERNELS if k in m.group(1)), None)
-            args = re.search(r"I((?:L[ij]n?\d+E)+)E", m.group(1)) if name else None
-            entry = None if name is None else name + "<" + ",".join(
-                a.replace("n", "-") for a in re.findall(r"L[ij](n?\d+)E", args.group(1))) + ">"
+            name = next((k for k in TENSOR_CORE_KERNELS if k + "I" in m.group(1)), None)
+            entry = None if name is None else (
+                name + "<" + ",".join(template_args(m.group(1), name)) + ">")
             continue
         if entry is None:
             continue
@@ -288,6 +321,10 @@ def phase_check(torch, np):
         torch.cuda.synchronize()
         add(kernel, geom, dtype, ulp_agreement(out, ref), **extra)
 
+    def record_rule(kernel, geom, dtype, out, ref, rule, **extra):
+        torch.cuda.synchronize()
+        add(kernel, geom, dtype, agreement(out, ref, rule), **extra)
+
     for geom, (L, D, H, causal) in GEOMETRIES.items():
         for dtype in (torch.bfloat16, torch.float32):
             p = _random_block(np_rng, D, dtype, device, torch)
@@ -418,6 +455,7 @@ def phase_check(torch, np):
             del p, qb, x, xp, h, hid_in, qkv, sl, q, k, v, qh, kh, vh, attn, hid32
             torch.cuda.empty_cache()
     check_edges(torch, np_rng, device, record)
+    check_int8_edges(torch, np_rng, device, record_rule)
     for r in rows:
         emit({"phase": "check", **r})
     bad = [r for r in rows if not r["ok"]]
@@ -474,6 +512,68 @@ def check_edges(torch, np_rng, device, record):
                                            else "")
             record(name, f"edge_M{m}_K{kk}_N{n}", dtype, K.gemm_bias_epilogue(a, w, bias, epi, r),
                    K.gemm_bias_epilogue_plain(a, w, bias, epi, r), gemm=epi)
+
+
+# the int8 GEMM's edges: one row and a ragged 8 x 197; K from one 16-byte
+# TMA row to 4096 (208: a ragged 128-byte K step); N one 8-column piece,
+# half a tile and the ViT-B/16 QKV width
+INT8_EDGE_M = (1, 8 * 197)
+INT8_EDGE_K = (16, 208, 640, 3072, 4096)
+INT8_EDGE_N = (8, 192, 2304)
+# quant_rows.cu's width classes (a warp a row up to 512 bytes, a block a row
+# above), the RN50x4 text widths 640 and 2560, and a row count that is no
+# multiple of a block's four rows
+QUANT_EDGE_WIDTHS = (8, 200, 640, 768, 2560, 3072, 4096)
+QUANT_EDGE_ROWS = 8 * 197 + 3
+
+
+def check_int8_edges(torch, np_rng, device, record_rule):
+    """The ragged edges of the s8 wgmma GEMM (every M x K x N above, every
+    epilogue, bf16 and fp32: bit-exact, the bf16 QuickGELU within an ulp)
+    and of the one-read quantizer (every width above, every quantizer,
+    without LayerNorm bit-exact, with it, f32 or bf16 statistics, to its
+    step rule)."""
+    from protoclip_tpu_torch.ops import kernels as K
+
+    def on_card(a, dt=torch.float32):
+        return torch.from_numpy(a).to(device=device, dtype=dt)
+
+    for m, k, n in ((m, k, n) for m in INT8_EDGE_M for k in INT8_EDGE_K for n in INT8_EDGE_N):
+        a_q = on_card(np_rng.integers(-127, 128, (m, k), dtype="int8"), torch.int8)
+        w_q = on_card(np_rng.integers(-127, 128, (n, k), dtype="int8"), torch.int8)
+        a_s = on_card((np_rng.random((m, 1), dtype="float32") + 0.5) / 127)
+        w_s = on_card((np_rng.random(n, dtype="float32") + 0.5) / (127 * k ** 0.5))
+        bias = on_card(np_rng.standard_normal(n, dtype="float32") * 0.1)
+        res32 = np_rng.standard_normal((m, n), dtype="float32")
+        for dtype in (torch.bfloat16, torch.float32):
+            for epi in K._INT8_EPILOGUES:
+                res = on_card(res32, dtype) if epi == "dequant_bias_residual" else None
+                args = (a_q, a_s, w_q, w_s, bias, epi, dtype)
+                name = "gemm_int8_epilogue" + ("" if epi in K._MAIN_MODES else "." + epi)
+                record_rule(name, f"edge_M{m}_K{k}_N{n}", dtype,
+                            K.gemm_int8_epilogue(*args, residual=res),
+                            K.gemm_int8_epilogue_plain(*args, residual=res),
+                            "ulp" if epi == "dequant_bias_gelu_bf16" else "exact", gemm=epi)
+    rows = QUANT_EDGE_ROWS
+    for w in QUANT_EDGE_WIDTHS:
+        scale = on_card(1 + 0.1 * np_rng.standard_normal(w, dtype="float32"))
+        bias = on_card(0.1 * np_rng.standard_normal(w, dtype="float32"))
+        x32 = np_rng.standard_normal((rows, w), dtype="float32") * 3 + 0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            x, geom = on_card(x32, dtype), f"edge_rows{rows}_W{w}"
+            for mode in K._QUANT_MODES:
+                sub = "" if mode == "dyn" else "." + mode
+                record_rule("quant_rows" + sub, geom, dtype, K.quant_rows(x, mode),
+                            K.quant_rows_plain(x, mode), "exact")
+                record_rule("layernorm_quant_rows" + sub, geom, dtype,
+                            K.layernorm_quant_rows(x, scale, bias, mode=mode),
+                            K.layernorm_quant_rows_plain(x, scale, bias, mode=mode), "ln_quant")
+                record_rule("layernorm_quant_rows.bf16_stats", geom, dtype,
+                            K.layernorm_quant_rows(x, scale, bias, mode=mode, bf16_stats=True),
+                            K.layernorm_quant_rows_plain(x, scale, bias, mode=mode,
+                                                         bf16_stats=True),
+                            "ln_quant_bf16_stats", qmode=mode)
+        torch.cuda.empty_cache()
 
 
 # -- 4-5. the main paths, bf16 and int8 ---------------------------------------------
@@ -740,6 +840,32 @@ def median_ms(torch, fn, runs=TIME_RUNS, warmup=2):
     return times[len(times) // 2]
 
 
+SPIN_CYCLES = 20_000_000  # ~10 ms of a spinning kernel at the H100's clock
+
+
+def device_ms(torch, fn, runs=TIME_RUNS):
+    """Median CUDA-event time of one call of ``fn`` enqueued behind a
+    spinning kernel (``torch.cuda._sleep``): the host has issued every launch
+    of the call before the start event runs, so the host's time to reach the
+    launches, which :func:`median_ms` includes (most of it for a kernel
+    shorter than its Python wrapper), is hidden and the time is the
+    device's."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
 def bound_ms(n_bytes, ops, dtype="bfloat16"):
     """(least ms, what bounds it, bytes ms, operations ms).  ``ops`` is a
     count in ``dtype`` or a {dtype: count} map, each at its peak rate."""
@@ -811,7 +937,8 @@ def phase_times(torch, np, params, qparams):
                 except RuntimeError as exc:  # the library call does not take this shape
                     lib_note = str(exc).splitlines()[0][:200]
             r[name] = {
-                "ms": median_ms(torch, kernel), "plain_ms": median_ms(torch, plain),
+                "ms": median_ms(torch, kernel), "device_ms": device_ms(torch, kernel),
+                "plain_ms": median_ms(torch, plain),
                 "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
                 "bytes_ms": by_bytes, "ops_ms": by_ops, "max_abs_err": _max_abs_err(out, ref),
             }
@@ -1157,7 +1284,8 @@ def phase_variant_times(torch, np):
             held = agreement(out, ref, rule)
             bnd, by, by_bytes, by_ops = bound_ms(n_bytes, ops, dtype)
             r[name] = {
-                "ms": median_ms(torch, kernel), "plain_ms": median_ms(torch, plain),
+                "ms": median_ms(torch, kernel), "device_ms": device_ms(torch, kernel),
+                "plain_ms": median_ms(torch, plain),
                 "library_ms": None if library is None else median_ms(torch, library),
                 "bound_ms": bnd, "bound_by": by, "bytes_ms": by_bytes, "ops_ms": by_ops,
                 "rule": rule, **held,
@@ -1324,7 +1452,9 @@ def phase_kernels(counts, times, vtimes):
     it is the site's blocks run on the kernels, each a chain of the kernel
     launches counted in the other rows.  The parts of a
     kernel timed apiece (the four GEMMs of a block, quant_rows on the
-    attention output and on the fp32 hidden) are summed."""
+    attention output and on the fp32 hidden) are summed.  ``ms`` is the
+    CUDA-event time of one call (with the host's time to reach the launch),
+    ``device_ms`` the same call's device time (:func:`device_ms`)."""
     image = times["image"]["kernels"]
     rows = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
@@ -1340,6 +1470,7 @@ def phase_kernels(counts, times, vtimes):
             "launches_by_path": {run: c.get(name, 0) for run, c in counts.items()},
             "max_abs_err": max(pt["max_abs_err"] for pt in parts),
             "ms": sum(pt["ms"] for pt in parts),
+            "device_ms": sum(pt["device_ms"] for pt in parts),
             "plain_ms": sum(pt["plain_ms"] for pt in parts),
             "bound_ms": sum(pt["bound_ms"] for pt in parts),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",

@@ -56,17 +56,17 @@
 //
 // fp32 runs a plain SIMT tile (64x64, 4x4 outputs a thread) in exact fp32:
 // the tensor cores would round its operands to TF32.
-#include <cuda.h>  // CUtensorMap and its enums: types only
-
 #include <climits>
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 enum { EPI_BIAS = 0, EPI_BIAS_RESIDUAL = 1, EPI_BIAS_GELU = 2, EPI_BIAS_GELU_BF16 = 3,
        EPI_BIAS32_RESIDUAL = 4 };
@@ -117,54 +117,6 @@ constexpr int B_HALF_BYTES = BK * 64 * 2;         // one 64-column box: 64 K row
 constexpr int STAGE_BYTES = A_BYTES + 2 * B_HALF_BYTES;
 constexpr int WGMMA_SMEM = STAGES * STAGE_BYTES + 1024;  // + slack to align to 1024
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int inner, int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(outer)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
 // d += A (64x16, K-major) . B (16x128, N-major: transpose bit set)
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
                                                  uint64_t desc_b, uint32_t scale_d) {
@@ -202,26 +154,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // Output staging for the epilogue, in the stage buffers once the products
 // are done: 128 rows of 128 bf16 values, each padded by 16 bytes so that the
 // accumulator layout's 4-byte writes hit 32 distinct banks.
 constexpr int OUT_LD = BN + 8;
 static_assert(BM * OUT_LD * 2 <= STAGES * STAGE_BYTES, "staging fits the ring");
-
-__device__ __forceinline__ void consumers_sync() {  // the 256 consumer threads
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
-}
 
 template <int EPI>
 __global__ void __launch_bounds__(WGMMA_THREADS, 2)
@@ -286,7 +223,7 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
   // lane/4 (+8) of the warpgroup, columns 8j + 2(lane%4) (+1)) with its
   // bias, rounded to bf16 into the staging tile.  Every load has landed and
   // both warpgroups' products are done once they meet here.
-  consumers_sync();
+  consumers_sync<CONSUMERS * 128>();
   bf16* stage_out = reinterpret_cast<bf16*>(smem_raw + (base - smem_u32(smem_raw)));
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int srow = wg * 64 + warp * 16 + (lane >> 2);
@@ -309,7 +246,7 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
                                   epilogue_value<bf16, EPI>(d[4 * j + 2 * h + 1], epi, b1));
     }
   }
-  consumers_sync();
+  consumers_sync<CONSUMERS * 128>();
   // 2: 16-byte pieces, whole rows to neighbouring threads, with the
   // residual read in the same pieces; rows past M and pieces past N skipped
   const bool res_on = has_residual<EPI>(epi);
@@ -335,51 +272,12 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
   }
 }
 
-// cuTensorMapEncodeTiled, from the runtime's driver entry point
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major bf16 matrix (outer, inner), read in boxes of (box_outer,
-// box_inner = 64: 128 bytes, the swizzle's width).
-bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
-              uint32_t box_outer) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int EPI>
 int launch_wgmma(const void* a, const void* w, const void* bias, const void* resid, void* out,
                  int M, int N, int K, int epi, cudaStream_t s) {
   CUtensorMap tm_a, tm_w;
-  if (!make_map(&tm_a, a, K, M, BM) || !make_map(&tm_w, w, N, K, BK))
+  if (!make_map(&tm_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, K, M, BM) ||
+      !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, N, K, BK))
     return (int)cudaErrorInvalidValue;
   const long long n_tiles = (N + BN - 1) / BN;
   const long long tiles = n_tiles * ((M + BM - 1) / BM);

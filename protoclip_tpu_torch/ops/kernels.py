@@ -69,6 +69,8 @@ SMEM_PER_BLOCK = 232_448  # opt-in dynamic shared memory of one H100 block
 MAX_HEAD_DIM = 128  # ATT_MAX_DH in csrc/attention_packed.cu
 LN_EPS = 1e-5
 PIECE = 8  # elements the GEMM's and attention's sizes and strides are multiples of
+INT8_K_PIECE = 16  # int8 K: the int8 GEMM's TMA rows are whole 16-byte pieces
+QUANT_MAX_WIDTH = 4096  # widest row quant_rows.cu holds in registers
 
 LAUNCHES: Dict[str, int] = {
     "layernorm_rows": 0,
@@ -151,14 +153,16 @@ def _require_on_card(name: str, dtype: torch.dtype, **tensors: torch.Tensor) -> 
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def require_pieces(name: str, sizes: Dict[str, int], tensors: Dict[str, torch.Tensor]) -> None:
-    """Raise ``ValueError`` unless every size is a multiple of 8 elements and
-    every tensor starts on a 16-byte boundary: the bf16 GEMM (TMA) and
-    attention (``cp.async``) move rows in whole 16-byte pieces.  A pure
-    function of the sizes and the tensors' addresses."""
+def require_pieces(name: str, sizes: Dict[str, int], tensors: Dict[str, torch.Tensor],
+                   piece: int = PIECE) -> None:
+    """Raise ``ValueError`` unless every size is a multiple of ``piece``
+    elements (8: 16 bytes of bf16) and every tensor starts on a 16-byte
+    boundary: the GEMMs (TMA), the attention (``cp.async``) and the
+    quantizer move rows in whole 16-byte pieces.  A pure function of the
+    sizes and the tensors' addresses."""
     for what, n in sizes.items():
-        if n % PIECE:
-            raise ValueError(f"{name}: {what}={n} is not a multiple of {PIECE}")
+        if n % piece:
+            raise ValueError(f"{name}: {what}={n} is not a multiple of {piece}")
     for arg, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} does not start on a 16-byte boundary")
@@ -617,9 +621,20 @@ def layernorm_quant_rows_plain(x, scale, bias, eps: float = LN_EPS, mode: str = 
     return quant_rows_plain(ln(x, scale, bias, eps), mode)
 
 
+def require_quant_width(name: str, w: int, tensors: Dict[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless the row width ``w`` is a multiple of 8 up
+    to :data:`QUANT_MAX_WIDTH` and every tensor starts on 16 bytes:
+    ``quant_rows.cu`` holds a row in registers, read in 16-byte pieces."""
+    if not 0 < w <= QUANT_MAX_WIDTH:
+        raise ValueError(f"{name}: row width {w} is not in [8, {QUANT_MAX_WIDTH}]")
+    require_pieces(name, {"W": w}, tensors)
+
+
 def _launch_quant_rows(name: str, x, scale, bias, eps: float, mode: str = "dyn",
                        bf16_stats: bool = False):
     w = x.shape[-1]
+    ln = {} if scale is None else {"scale": scale, "bias": bias}
+    require_quant_width(name, w, {"x": x, **ln})
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty(*x.shape[:-1], 1, dtype=torch.float32, device=x.device)
     lib = _build.load_library()
@@ -709,13 +724,22 @@ def gemm_int8_epilogue_plain(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: tor
     raise ValueError(f"unknown epilogue {epilogue!r}; use {sorted(_INT8_EPILOGUES)}")
 
 
+def require_int8_pieces(name: str, k: int, n: int, tensors: Dict[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless K is a multiple of 16, N of 8 and every
+    tensor starts on 16 bytes: the int8 GEMM's TMA rows are K bytes, and its
+    output rows go out in 16-byte pieces."""
+    require_pieces(name, {"K": k}, {}, piece=INT8_K_PIECE)
+    require_pieces(name, {"N": n}, tensors)
+
+
 def gemm_int8_epilogue(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: torch.dtype,
                        residual=None):
     """``csrc/gemm_int8_epilogue.cu``: ``a_q`` (..., K) int8, ``a_s`` its
     fp32 row scales (..., 1), ``w_q`` (N, K) int8, ``w_s``/``bias`` (N,)
     fp32, ``residual`` (..., N) in ``dtype`` for ``dequant_bias_residual``.
     The output is in ``dtype``, or fp32 for ``dequant_bias_gelu`` and
-    ``dequant_bias_f32``."""
+    ``dequant_bias_f32``.  On the card K is a multiple of 16, N of 8 and
+    every tensor starts on 16 bytes (:func:`require_int8_pieces`)."""
     if epilogue not in _INT8_EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; use {sorted(_INT8_EPILOGUES)}")
     if (residual is None) != (epilogue != "dequant_bias_residual"):
@@ -735,11 +759,14 @@ def gemm_int8_epilogue(a_q, a_s, w_q, w_s, bias, epilogue: str, dtype: torch.dty
                          f"do not chain")
     out_dtype = torch.float32 if epilogue in _FP32_OUT_EPILOGUES else dtype
     out = torch.empty(*a_q.shape[:-1], n, dtype=out_dtype, device=a_q.device)
+    tensors = dict(a_q=a_q, w_q=w_q, w_s=w_s, bias=bias)
     if residual is not None:
         _require_on_card(name, dtype, residual=residual)
         if residual.shape != out.shape:
             raise ValueError(f"{name}: residual {tuple(residual.shape)} != output "
                              f"{tuple(out.shape)}")
+        tensors["residual"] = residual
+    require_int8_pieces(name, k, n, tensors)
     lib = _build.load_library()
     _build.check(
         lib.gemm_int8_epilogue(

@@ -406,6 +406,45 @@ def test_piece_rule_is_a_function_of_sizes_and_addresses(sizes, offset, match):
             kernels.require_pieces("k", sizes, {"a": view})
 
 
+@pytest.mark.parametrize("k,n,offset,match", [
+    (768, 2304, 0, None),
+    (3072, 768, 0, None),
+    (200, 192, 0, "K=200 is not a multiple of 16"),
+    (768, 100, 0, "N=100 is not a multiple of 8"),
+    (768, 768, 8, "does not start on a 16-byte boundary"),
+])
+def test_int8_gemm_shape_rule(k, n, offset, match):
+    """The s8 wgmma GEMM reads K-byte int8 rows through TMA and writes its
+    output in 16-byte pieces: K a multiple of 16, N of 8, every tensor on a
+    16-byte boundary, decided on the CPU before any launch."""
+    base = torch.zeros(64, dtype=torch.int8)
+    assert base.data_ptr() % 16 == 0
+    if match is None:
+        kernels.require_int8_pieces("k", k, n, {"a_q": base[offset:]})
+    else:
+        with pytest.raises(ValueError, match=match):
+            kernels.require_int8_pieces("k", k, n, {"a_q": base[offset:]})
+
+
+@pytest.mark.parametrize("w,offset,match", [
+    (8, 0, None),
+    (768, 0, None),
+    (4096, 0, None),
+    (100, 0, "W=100 is not a multiple of 8"),
+    (4104, 0, "row width 4104 is not in"),
+    (768, 4, "does not start on a 16-byte boundary"),
+])
+def test_quant_rows_width_rule(w, offset, match):
+    """quant_rows.cu holds a row in registers, read in 16-byte pieces: W a
+    multiple of 8 up to 4096 and the input on a 16-byte boundary."""
+    base = torch.zeros(64, dtype=torch.bfloat16)
+    if match is None:
+        kernels.require_quant_width("q", w, {"x": base[offset:]})
+    else:
+        with pytest.raises(ValueError, match=match):
+            kernels.require_quant_width("q", w, {"x": base[offset:]})
+
+
 def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
     """chip_smoke.py's build line reports registers and spills per template
     instantiation of the tensor-core kernels, from nvcc's -Xptxas -v."""
@@ -423,10 +462,23 @@ def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
         "ptxas info    : Used 90 registers, used 2 barriers, 48 bytes smem",
         "ptxas info    : Compiling entry function '_ZN54_gemm_f32_simtILi4EEEv' for 'sm_90a'",
         "ptxas info    : Used 70 registers, used 1 barriers, 8704 bytes smem",
+        # the s8 GEMM is templated on its activation type, then its epilogue
+        "ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__0c3e5b7a_21_gemm_int8_"
+        "epilogue_cu_9f1e2d3a13gemm_s8_wgmmaI13__nv_bfloat16Li1EEEv14CUtensorMap_stS1_PKfS3_S3_"
+        "PKT_PS4_iiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 104 registers, used 2 barriers",
+        "ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__0c3e5b7a_21_gemm_int8_"
+        "epilogue_cu_9f1e2d3a13gemm_s8_wgmmaIfLi2EEEv14CUtensorMap_stS1_PKfS3_S3_PKT_PfS4_iiii' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 98 registers, used 2 barriers",
     ])
     assert chip_smoke.ptxas_usage(log) == {
         "attention_bf16_mma<64,1>": {"registers": 128, "spill_bytes": 0},
         "gemm_bf16_wgmma<-1>": {"registers": 90, "spill_bytes": 4},
+        "gemm_s8_wgmma<__nv_bfloat16,1>": {"registers": 104, "spill_bytes": 0},
+        "gemm_s8_wgmma<float,2>": {"registers": 98, "spill_bytes": 0},
     }
 
 
