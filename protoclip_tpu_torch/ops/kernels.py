@@ -900,7 +900,10 @@ def attention_int8_plain(q, k, v, n_head: int, length: Optional[int] = None, gro
 def attention_int8(q, k, v, n_head: int, length: Optional[int] = None, group: int = 1):
     """``csrc/attention_int8.cu`` on ``(B, L, D)`` views that share one row
     stride (the column slices of a fused QKV buffer).  ``group``: the batch
-    elements that share one v scale per head (the TPU grid's block)."""
+    elements that share one v scale per head (the TPU grid's block).  The
+    kernel reads rows in 16-byte pieces: dh and the row stride are
+    multiples of 8 elements and the views start on 16-byte boundaries, or
+    it raises ``ValueError``."""
     if not q.is_cuda:
         return attention_int8_plain(q, k, v, n_head, length, group)
     b, l, d = q.shape
@@ -908,8 +911,9 @@ def attention_int8(q, k, v, n_head: int, length: Optional[int] = None, group: in
     length = l if length is None else length
     if not 1 <= length <= l:
         raise ValueError(f"length={length} must lie in [1, {l}]")
-    if dh > MAX_HEAD_DIM or dh % 4:
-        raise ValueError(f"attention_int8: head dim {dh} must be a multiple of 4 <= {MAX_HEAD_DIM}")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"attention_int8: head dim {dh} > {MAX_HEAD_DIM}")
+    require_pieces("attention_int8", {"dh": dh, "row stride": ld}, {"q": q, "k": k, "v": v})
     if group < 1 or b % group or b > 65535:
         raise ValueError(f"attention_int8: batch {b} must be a multiple of group {group}, <= 65535")
     lib = _build.load_library()

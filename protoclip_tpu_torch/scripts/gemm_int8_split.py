@@ -21,9 +21,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -44,19 +46,23 @@ SHAPES = {  # block: (M, D, {GEMM with K = D: (N, epilogue)}); proj (K = 4D) is 
 }
 
 
-def build(source: Path, main_loop_only: bool) -> ctypes.CDLL:
+def build(source: Path, define: Optional[str] = None,
+          entry: str = "gemm_int8_epilogue") -> ctypes.CDLL:
+    """``source`` alone, with ``-D<define>`` where given, into a library of
+    its own under ``build/split/``, with ``entry``'s C signature declared."""
     out_dir = _build.BUILD_DIR.parent / "split"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"{source.stem}{'_main_loop' if main_loop_only else ''}.so"
+    tag = hashlib.sha256(str(source.resolve()).encode()).hexdigest()[:8]
+    lib = out_dir / f"{source.stem}_{tag}{'_' + define.lower() if define else ''}.so"
     cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", f"-I{source.parent}",
-           f"-I{_build.CSRC_DIR}", *(["-DGEMM_MAIN_LOOP_ONLY"] if main_loop_only else []),
+           f"-I{_build.CSRC_DIR}", *([f"-D{define}"] if define else []),
            str(source), "-o", str(lib)]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{done.stdout}{done.stderr}")
     dll = ctypes.CDLL(str(lib))
-    restype, argtypes = _build._SIGNATURES["gemm_int8_epilogue"]
-    dll.gemm_int8_epilogue.restype, dll.gemm_int8_epilogue.argtypes = restype, argtypes
+    fn = getattr(dll, entry)
+    fn.restype, fn.argtypes = _build._SIGNATURES[entry]
     return dll
 
 
@@ -87,7 +93,7 @@ def main(argv=None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    libs = {"whole": build(args.source, False), "main_loop": build(args.source, True)}
+    libs = {"whole": build(args.source), "main_loop": build(args.source, "GEMM_MAIN_LOOP_ONLY")}
     g = torch.Generator(device="cuda").manual_seed(0)
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     result = {"source": str(args.source), "nvidia_smi": smi, "gemms": {}}

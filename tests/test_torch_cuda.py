@@ -237,6 +237,20 @@ def _assert_within_an_ulp(out, ref):
     assert int(steps.max()) <= 1 and float((steps == 0).float().mean()) >= 0.999
 
 
+def _assert_int8_attention_close(got, want, v):
+    """``attention_int8`` against its plain version: bit-exact, or, where
+    the softmax sums in another order move a weight code a step on a
+    rounding tie, no output more than two steps of v_amax / 127 off and a
+    cosine above MIN_COSINE."""
+    torch.cuda.synchronize()
+    if torch.equal(got, want):
+        return
+    step = float(v.abs().max()) / 127
+    got, want = got.double().flatten(), want.double().flatten()
+    assert float((got - want).abs().max()) <= 2 * step
+    assert float(got @ want / (got.norm() * want.norm())) > MIN_COSINE
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("L,D,H,length", [(200, 768, 12, 197), (264, 1024, 16, 257),
@@ -257,17 +271,9 @@ def test_cuda_bench_modes_and_kernels_match_plain(cuda_device, dtype, L, D, H, l
     for mode in ("q_round", "no_softmax"):
         _assert_close(kernels.attention_packed(*sl, H, False, length, mode),
                       kernels.fused_attention_packed_plain(*sl, H, False, length, mode), dtype)
-    # a softmax weight on a rounding tie of w * 127 (expf and the sums
-    # differ by ulps) moves its int8 code a step, and an output by at most
-    # v_amax / 127; nothing else differs
-    step = float(qkv[..., 2 * D:].abs().max()) / 127
     for group in (1, 2, 4):
-        got = kernels.attention_int8(*sl, H, length, group)
-        want = kernels.attention_int8_plain(*sl, H, length, group)
-        torch.cuda.synchronize()
-        got, want = got.double().flatten(), want.double().flatten()
-        assert float((got - want).abs().max()) <= 2 * step
-        assert float(got @ want / (got.norm() * want.norm())) > MIN_COSINE
+        _assert_int8_attention_close(kernels.attention_int8(*sl, H, length, group),
+                                     kernels.attention_int8_plain(*sl, H, length, group), sl[2])
     assert torch.equal(kernels.qkv_sum(qkv), kernels.qkv_sum_plain(qkv))
     for mode in ("recip", "static", "cast"):
         for t in (x, hid.float()):
@@ -367,6 +373,42 @@ def test_cuda_attention_edges_match_plain(cuda_device, L, causal, dh):
                       kernels.fused_attention_packed_plain(*packed, H, causal), dtype)
         _assert_close(kernels.fused_attention(*heads, causal),
                       kernels.fused_attention_plain(*heads, causal), dtype)
+
+
+# the int8 attention core's edges: one row, a 16-row warp tile and one past
+# it, the text length, the bench's padded image rows and ViT-L/14's 257 and
+# 264; every head width class of the 32-byte k-step (8 ... 128)
+INT8_ATTENTION_L = (1, 15, 16, 17, 77, 200, 257, 264)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 24, 32, 64, 128])
+@pytest.mark.parametrize("L", INT8_ATTENTION_L)
+def test_cuda_int8_attention_edges_match_plain(cuda_device, L, dh):
+    """The s8 tensor-core attention core where L is no multiple of its 16-row
+    and 32-key tiles, length = L and below it, dh zero-padded to a 32-byte
+    k-step, one v scale per 1, 2 and 4 batch elements, bf16 and fp32 on
+    the same int8 path."""
+    H = 2
+    g = torch.Generator(device=cuda_device).manual_seed(L * 1000 + dh)
+    kernels.reset_launch_counts()
+    calls = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = (torch.randn(4, L, 3 * H * dh, device=cuda_device, generator=g) * 2).to(dtype)
+        sl = (qkv[..., :H * dh], qkv[..., H * dh:2 * H * dh], qkv[..., 2 * H * dh:])
+        for length in sorted({L, max(1, L - 5)}):
+            for group in (1, 2, 4):
+                _assert_int8_attention_close(kernels.attention_int8(*sl, H, length, group),
+                                             kernels.attention_int8_plain(*sl, H, length, group),
+                                             sl[2])
+                calls += 1
+    assert kernels.launch_counts()["attention_int8"] == calls
+    with pytest.raises(ValueError, match="dh=12 is not a multiple of 8"):
+        qkv = torch.zeros(4, L, 3 * 12, device=cuda_device)
+        kernels.attention_int8(qkv[..., :12], qkv[..., 12:24], qkv[..., 24:], 1)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        qkv = torch.zeros(4 * L * 3 * dh + 1, device=cuda_device)[1:].view(4, L, 3 * dh)
+        kernels.attention_int8(qkv[..., :dh], qkv[..., dh:2 * dh], qkv[..., 2 * dh:], 1)
 
 
 @pytest.mark.cuda

@@ -23,6 +23,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -69,8 +71,8 @@ def ref():
     return mod
 
 
-def geom(h=TINY["H"]):
-    return bv.Geometry(TINY["B"], TINY["L"], TINY["LP"], TINY["D"], h, TINY["LAYERS"], TINY["G"])
+def geom(h=TINY["H"], length=TINY["L"], padded=TINY["LP"]):
+    return bv.Geometry(TINY["B"], length, padded, TINY["D"], h, TINY["LAYERS"], TINY["G"])
 
 
 def f32(a):
@@ -339,8 +341,8 @@ _INT8_KERNEL_ARGS = ("quant_hid", "skip_attn", "gelu_bf16", "static_scales", "qu
                      "ln_stats_bf16")
 
 
-def _int8_case(name, h=2, group=None):
-    g = geom(h)
+def _int8_case(name, h=2, group=None, g=None):
+    g = g or geom(h)
     spec = bench.parse_variant(name, g)
     flags = bench._int8_flags(spec)
     layer = bench._int8_host_layers(g, not flags["quant_hid"])[0]
@@ -379,24 +381,69 @@ def test_int8_variant_block_matches_pallas_interpret(ref, name):
     assert_bars(ours, f32(interpret(kernel, jx(x), _int8_script_args(layer))), 2e-2, 0.9999)
 
 
-@pytest.mark.parametrize("h", [2, 1])
-def test_int8s_groups_its_v_scale_by_the_grid_block(ref, h):
+@pytest.mark.parametrize("h,padded,length", [
+    pytest.param(2, TINY["LP"], TINY["L"], id="2"), pytest.param(1, TINY["LP"], TINY["L"], id="1"),
+    # rows L that are no multiple of the tensor-core kernel's 16-row and
+    # 32-key tiles, with keys masked from length on
+    pytest.param(2, 13, 9, id="2-L13-len9"), pytest.param(2, 17, 11, id="2-L17-len11"),
+    pytest.param(2, 40, 33, id="2-L40-len33"), pytest.param(1, 24, 20, id="1-L24-len20")])
+def test_int8s_groups_its_v_scale_by_the_grid_block(ref, h, padded, length):
     """``int8s``: the script's body quantizes v with one amax per head over
     its grid block of g batch elements (:1047).  The port's block with
     ``group=g`` equals the body run op by op on each block of g, at g=2 and
     g=4, and the two groupings give different outputs."""
-    kernel = ref.make_kernel_int8s(h, TINY["L"])
+    kernel = ref.make_kernel_int8s(h, length)
+    gm = geom(h, length, padded)
     outs = {}
     for g in (2, 4):
-        x, layer, _, ours = _int8_case("int8s", h, group=g)
+        x, layer, _, ours = _int8_case("int8s", h, group=g, g=gm)
         args = _int8_script_args(layer)
         body = np.concatenate([f32(op_by_op(kernel, jx(x[i:i + g]), args))
                                for i in range(0, TINY["B"], g)])
         np.testing.assert_array_equal(ours, body)
         outs[g] = ours
     assert not np.array_equal(outs[2], outs[4])
-    x, layer, _, _ = _int8_case("int8s", h, group=4)
+    x, layer, _, _ = _int8_case("int8s", h, group=4, g=gm)
     assert_bars(outs[4], f32(interpret(kernel, jx(x), _int8_script_args(layer))), 2e-2, 0.9999)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True, database=None)
+@given(batch=st.integers(1, 4), n_head=st.integers(1, 2), rows=st.integers(1, 40),
+       data=st.data())
+def test_attention_int8_plain_codes_the_tensor_core_kernel_relies_on(batch, n_head, rows, data):
+    """Three facts of ``attention_int8_plain`` that ``csrc/attention_int8.cu``
+    builds on: the weight codes w_q lie in [0, 127] (they fit s8 and are
+    packed into the PV product as they are), keys at or past ``length`` get
+    code 0 (so the key padding of the 32-key steps adds nothing), and every
+    batch element of a group shares one v scale per head.  v is a scaled
+    identity (v[b, j, head*dh + j] = c_b), so each output column is one
+    weight code times one v code: o = w_q * round(127 c_b / A) * A / 127^2
+    with A the group's largest c."""
+    length = data.draw(st.integers(1, rows), label="length")
+    group = data.draw(st.sampled_from([g for g in (1, 2, 4) if batch % g == 0]), label="group")
+    seed = data.draw(st.integers(0, 2 ** 16), label="seed")
+    rng = np.random.default_rng(seed)
+    dh = -(-rows // 8) * 8
+    d = n_head * dh
+    q, k = (torch.from_numpy(rng.standard_normal((batch, rows, d)).astype(np.float32) * 2)
+            for _ in range(2))
+    eye = torch.zeros(rows, dh)
+    eye[torch.arange(rows), torch.arange(rows)] = 1.0
+    c = torch.from_numpy(rng.uniform(0.25, 4.0, batch).astype(np.float32))
+    v = (c[:, None, None] * eye).repeat(1, 1, n_head)
+    # w_q from the unit identity with no grouping: o * 127 = w_q exactly
+    o1 = kernels.attention_int8_plain(q, k, eye.repeat(batch, 1, n_head), n_head, length, 1)
+    w = (o1 * 127.0).reshape(batch, rows, n_head, dh)[..., :rows]
+    w_q = torch.round(w)
+    assert float((w - w_q).abs().max()) < 1e-4
+    assert float(w_q.min()) >= 0 and float(w_q.max()) <= 127
+    assert bool((w_q[..., length:] == 0).all())
+    # one scale per head for each group: the group's largest c
+    a = c.reshape(-1, group).amax(dim=1).repeat_interleave(group)[:, None, None, None]
+    code = torch.round(c[:, None, None, None] * (127.0 / a))
+    want = (w_q * code) * (a / torch.tensor(16129.0))
+    got = kernels.attention_int8_plain(q, k, v, n_head, length, group)
+    assert torch.equal(got.reshape(batch, rows, n_head, dh)[..., :rows], want)
 
 
 # -- 12-layer checksums, the CLI, the wrappers ---------------------------------------------------
