@@ -31,13 +31,23 @@ Phases, one JSON line each on stdout:
              load_clip quantizes, every layer is K3), plus the serving encode
              (io.make_encode_fn) on a fixed uint8 batch, with its own launch
              counts, held against the same fp32 CPU features.
-6. times   - each kernel (CUDA events around one call, and its device
+6. runner  - test-only Proto-CLIP on RN50 at full width (random weights,
+             bf16) through the port's own entry points, on a synthetic
+             caltech101 tree of JPEGs: ``train.runner.prepare_experiment``
+             (the threaded loader, PIL decode and train/eval transforms,
+             the ResNet image tower on cuDNN, K2 on every text layer, the
+             feature caches in the reference's tree), a ``_v/_t/_a`` triple
+             saved, then ``run(only_test=True)``, which must encode nothing
+             (K2 launched 0 times) and whose ``test_acc_fixed`` must equal
+             the accuracy of the cached features and the reloaded triple;
+             RN50's card features held against the fp32 CPU path.
+7. times   - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
              (images B=256, prompts B=1024), and the encode rates in bf16
-             (K2) and int8 (K3).
-7. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+             (K2) and int8 (K3), and RN50's image encode in bf16.
+8. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over every variant at the full
              ViT-B/16 geometry (B=512, LP=200, 12 layers) and four at
@@ -47,8 +57,9 @@ Phases, one JSON line each on stdout:
              batch), twins held to their twin's checksum; then each of its
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times).
-8. kernels - the contract line: every ported kernel with the path or phase
-             that launched it, its launches, error, times and bound.
+9. kernels - the contract line: every ported kernel with the path or phase
+             that launched it, its launches (by path, the runner's too),
+             error, times and bound.
 
 The bf16 paths of the two kernels that carry the blocks run on the tensor
 cores: ``attention_packed.cu`` as mma.sync m16n8k16 (Q, K, V through
@@ -878,7 +889,198 @@ def phase_main_int8(torch, np, data, ref):
     return cfg, params, counts
 
 
-# -- 6. times ------------------------------------------------------------------------
+# -- 6. the runner: RN50 through the user's entry points ------------------------------
+
+RUNNER_BACKBONE = "RN50"
+RUNNER_BATCH = 64
+RN_DAMP = 0.25
+
+
+def write_caltech_tree(np, root):
+    """A synthetic caltech101 tree (the layout of tests/test_e2e.py): N_CLASS
+    folders of class-coloured JPEGs, SHOTS train and N_EVAL / N_CLASS val and
+    test images a class, and the CoOp split JSON."""
+    from PIL import Image
+
+    np_rng = np.random.default_rng(SEED)
+    colours = np_rng.integers(0, 200, (N_CLASS, 3))
+    img_dir = os.path.join(root, "caltech-101", "101_ObjectCategories")
+    rows = {"train": [], "val": [], "test": []}
+    per_split = (("train", SHOTS), ("val", N_EVAL // N_CLASS), ("test", N_EVAL // N_CLASS))
+    for c in range(N_CLASS):
+        cname = f"class_{c}"
+        os.makedirs(os.path.join(img_dir, cname))
+        for split, count in per_split:
+            for i in range(count):
+                rel = f"{cname}/{split}_{i}.jpg"
+                noise = np_rng.integers(0, 56, (240, 300, 3))
+                Image.fromarray((colours[c] + noise).astype(np.uint8)).save(
+                    os.path.join(img_dir, rel), quality=95)
+                rows[split].append([rel, c, cname])
+    with open(os.path.join(root, "caltech-101", "split_zhou_Caltech101.json"), "w") as fh:
+        json.dump(rows, fh)
+
+
+def phase_runner(torch, np):
+    """Test-only Proto-CLIP on RN50 at full width (224 px, layers 3-4-6-3,
+    width 64, embed 1024; random weights, seed 0; bf16) through the port's
+    own entry points: ``prepare_experiment`` encodes a synthetic caltech101
+    tree on the card and writes the caches in the reference's tree, a
+    ``_v/_t/_a`` triple is saved, and ``run(only_test=True)`` scores it from
+    the caches alone.  The launch counts are set to 0 just before each of
+    the two runs and read just after it."""
+    import tempfile
+
+    from protoclip_tpu_torch.core import Config, accuracy, from_arrays
+    from protoclip_tpu_torch.data import EvalTransform, load_image, normalize_batch
+    from protoclip_tpu_torch.io import (checkpoint_paths, load_checkpoint_triple,
+                                        save_checkpoint_triple)
+    from protoclip_tpu_torch.memory import banks
+    from protoclip_tpu_torch.models import (adapter_from_torch_state, adapter_to_torch_state,
+                                            cast_params, encode_image, encode_text, init_adapter,
+                                            load_clip)
+    from protoclip_tpu_torch.models.clip import to_device
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.train import runner
+
+    calls = {"image": 0, "text": 0}
+
+    def counted(fn, kind):
+        def wrapper(*args, **kwargs):
+            calls[kind] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    banks.tokenize = synthetic_tokenize  # the BPE vocab is not in the repository
+    runner.encode_image = counted(encode_image, "image")
+    runner.encode_text = counted(encode_text, "text")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as tmp:
+        write_caltech_tree(np, os.path.join(tmp, "DATA"))
+        cfg = Config(dataset="caltech101", root_path=os.path.join(tmp, "DATA"), shots=SHOTS,
+                     backbone=RUNNER_BACKBONE, augment_epoch=AUGMENT, alpha=0.5, beta=5.0,
+                     adapter="fc", batch_size=RUNNER_BATCH, only_test=True,
+                     cache_root=os.path.join(tmp, "caches"),
+                     logs_dir_path=os.path.join(tmp, "logs"), compute_dtype="bfloat16")
+
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        setup = runner.prepare_experiment(cfg, progress=False)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        prepare_counts = K.launch_counts()
+        prepare_calls = dict(calls)
+
+        stems = [*setup.cache.visual_bank_stems(AUGMENT), setup.cache.text_bank_stem(),
+                 *setup.cache.split_stems("val"), *setup.cache.split_stems("test")]
+        missing = [s for s in stems if not os.path.exists(os.path.join(setup.cache.root,
+                                                                       s + ".npz"))]
+        require(not missing, f"cache files missing at the reference stems: {missing}")
+        paths = checkpoint_paths(cfg.cache_dir, cfg.backbone, cfg.shots, cfg.alpha, cfg.beta,
+                                 cfg.lr, cfg.augment_epoch, cfg.train_epoch)
+        adapter = init_adapter(torch.Generator().manual_seed(SEED), setup.bank_t.shape[1], "fc")
+        save_checkpoint_triple(*paths, setup.bank_v, setup.bank_t,
+                               adapter_to_torch_state(adapter, "fc"))
+
+        calls.update(image=0, text=0)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = runner.run(cfg, progress=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_counts = K.launch_counts()
+        run_calls = dict(calls)
+
+        bank_v, bank_t, state = load_checkpoint_triple(*paths)
+        model = from_arrays(bank_v, bank_t, adapter_from_torch_state(state, "fc"), "fc", SHOTS)
+        acc = accuracy(model, setup.test_feats, setup.test_labels, cfg.alpha, cfg.beta)
+        clip_cfg = setup.clip_cfg
+        images = np.stack([EvalTransform(clip_cfg.image_resolution)(load_image(d.impath))
+                           for d in setup.dataset.test[:2]])
+    runner.encode_image, runner.encode_text = encode_image, encode_text
+
+    k2 = clip_cfg.transformer_layers * prepare_calls["text"]
+    require(prepare_calls["image"] > 0 and prepare_calls["text"] > 0,
+            f"prepare_experiment encoded {prepare_calls}")
+    require(prepare_counts["fused_transformer_block"] == k2
+            and prepare_counts["layernorm_rows"] == 2 * k2
+            and prepare_counts["gemm_bias_epilogue"] == 4 * k2
+            and prepare_counts["attention_packed"] == k2
+            and prepare_counts["fused_transformer_block_int8"] == 0,
+            f"prepare_experiment launches {prepare_counts}, expected K2 x {k2}")
+    require(run_calls == {"image": 0, "text": 0} and not any(run_counts.values()),
+            f"run(only_test) encoded {run_calls} with launches {run_counts}: not from the cache")
+    d = clip_cfg.embed_dim
+    require(setup.bank_v.shape == (N_CLASS * SHOTS, d) and setup.bank_t.shape == (N_CLASS, d)
+            and setup.test_feats.shape == (N_EVAL, d), "runner features")
+    require(abs(acc - result.test_acc_fixed) <= 1e-6,
+            f"test_acc_fixed {result.test_acc_fixed} but the cached features and the triple "
+            f"give {acc}")
+
+    # RN50 on the card against the plain path in fp32 on the CPU.  This
+    # random init (He-normal convs, identity BN, as the JAX package draws
+    # them) doubles the activations' variance at every residual add, so the
+    # attention pool's softmax is close to an argmax, which bf16 rounding
+    # can move.  The image tower is held in fp32 as loaded, and in bf16 with
+    # its residual branches damped (every bn3 scale x RN_DAMP), where the
+    # scores stay small; the runner's own bf16 cosines are reported.
+    tokens = torch.from_numpy(synthetic_tokenize(["a photo of a class_1.", "a photo of a class_7."]))
+    batch = torch.from_numpy(images)
+    cpu_i, card_i = {}, {}
+    with torch.inference_mode():
+        _, cpu_params = load_clip(RUNNER_BACKBONE, dtype=torch.float32, device="cpu", seed=SEED)
+        cpu_t = encode_text(cpu_params, tokens, clip_cfg)
+        for name, visual, dtype in (
+            ("fp32", cpu_params["visual"], torch.float32),
+            ("bf16_damped", damped_resnet(cpu_params["visual"]), torch.bfloat16),
+        ):
+            tower = {"visual": visual}
+            cpu_i[name] = encode_image(tower, normalize_batch(batch, torch.float32), clip_cfg)
+            card = to_device(cast_params(tower, dtype), torch.device("cuda"))
+            card_i[name] = encode_image(card, normalize_batch(batch.cuda(), dtype),
+                                        clip_cfg).float().cpu()
+        cpu_i["bf16"] = cpu_i["fp32"]
+    del cpu_params, card
+    card_i["bf16"], card_t = card_features(torch, clip_cfg, setup.clip_params,
+                                           {"images": batch, "tokens": tokens})
+    cos = {k: row_cosines(torch, card_i[k], cpu_i[k]).tolist() for k in card_i}
+    cos_t = row_cosines(torch, card_t, cpu_t)
+    rel32 = float((card_i["fp32"] - cpu_i["fp32"]).abs().max() / cpu_i["fp32"].abs().max())
+    require(min(cos["fp32"]) >= 0.99999 and rel32 <= 1e-4 and min(cos["bf16_damped"]) >= 0.999
+            and float(cos_t.min()) >= 0.999,
+            f"RN50 card vs CPU fp32: image cosines {cos} (fp32 rel err {rel32}), "
+            f"text cosines {cos_t.tolist()}")
+    emit({"phase": "runner", "backbone": clip_cfg.name, "dtype": "bfloat16",
+          "weights": "random, seed 0", "decode": "PIL",
+          "tokenizer": "synthetic: the BPE vocab is not in the repository",
+          "dataset": "synthetic caltech101 tree", "n_class": N_CLASS, "shots": SHOTS,
+          "augment_epoch": AUGMENT, "val": N_EVAL, "test": N_EVAL, "batch_size": RUNNER_BATCH,
+          "prepare_s": prepare_s, "run_only_test_s": run_s, "wall_s": prepare_s + run_s,
+          "prepare_encode_calls": prepare_calls, "run_encode_calls": run_calls,
+          "prepare_launches": prepare_counts, "run_launches": run_counts,
+          "zero_shot": result.zero_shot, "test_acc_fixed": result.test_acc_fixed,
+          "test_acc_fixed_from_cache_and_triple": acc,
+          "test_acc_searched": result.test_acc_searched,
+          "searched_alpha": result.searched_alpha, "searched_beta": result.searched_beta,
+          "cos_vs_cpu_fp32_images": cos["bf16"], "cos_vs_cpu_fp32_texts": cos_t.tolist(),
+          "image_tower_fp32_cos_vs_cpu": cos["fp32"], "image_tower_fp32_rel_err": rel32,
+          "image_tower_bf16_damped_cos_vs_cpu": cos["bf16_damped"], "damp": RN_DAMP})
+    return clip_cfg, setup.clip_params, prepare_counts
+
+
+def damped_resnet(visual):
+    """A ResNet tower whose residual branches are scaled by RN_DAMP (each
+    Bottleneck's last folded BN), so the activations stay O(1)."""
+    out = dict(visual)
+    for i in range(1, 5):
+        out[f"layer{i}"] = [{**b, "bn3": {"scale": b["bn3"]["scale"] * RN_DAMP,
+                                          "bias": b["bn3"]["bias"]}}
+                            for b in visual[f"layer{i}"]]
+    return out
+
+
+# -- 7. times ------------------------------------------------------------------------
 
 TIME_RUNS = 12
 
@@ -1122,9 +1324,10 @@ def phase_times(torch, np, params, qparams):
     return results
 
 
-def phase_encode_times(torch, cfg, params, qparams):
+def phase_encode_times(torch, cfg, params, qparams, rn_cfg, rn_params):
     """Whole-tower encode time at the timing batches, through the kernels:
-    bf16 (K2) and the W8A8 serving mode (K3)."""
+    bf16 (K2) and the W8A8 serving mode (K3); and RN50's image tower in bf16
+    (cuDNN convolutions, no kernel of the port)."""
     from protoclip_tpu_torch.models.clip import encode_image, encode_text
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1141,11 +1344,45 @@ def phase_encode_times(torch, cfg, params, qparams):
             txt_ms = median_ms(torch, lambda: encode_text(p, tokens, cfg), runs=10)
         out.update({f"{mode}_image_encode_ms": img_ms, f"{mode}_images_per_s": 256 / img_ms * 1e3,
                     f"{mode}_text_encode_ms": txt_ms, f"{mode}_prompts_per_s": 1024 / txt_ms * 1e3})
+    rn_px = rn_cfg.image_resolution
+    rn_images = torch.randn(256, rn_px, rn_px, 3, device="cuda", generator=g).to(torch.bfloat16)
+    with torch.inference_mode():
+        rn_ms = median_ms(torch, lambda: encode_image(rn_params, rn_images, rn_cfg), runs=10)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            encode_image(rn_params, rn_images, rn_cfg)
+            torch.cuda.synchronize()
+    out.update({"rn50_bf16_image_encode_ms": rn_ms, "rn50_bf16_images_per_s": 256 / rn_ms * 1e3,
+                **device_ms_by_kind(prof)})
     emit(out)
+
+
+def device_ms_by_kind(prof):
+    """One profiled encode's device time by kind of kernel (convolutions and
+    products, pools, elementwise passes) and its ten longest kernels."""
+    kinds, kernels = {}, []
+    for ev in prof.key_averages():
+        ms = ev.self_device_time_total / 1e3
+        if not ms:
+            continue
+        name = ev.key.lower()
+        if any(t in name for t in ("conv", "xmma", "gemm", "cudnn", "cutlass", "implicit")):
+            kind = "conv_and_gemm"
+        elif "pool" in name:
+            kind = "pool"
+        elif any(t in name for t in ("elementwise", "vectorized", "unrolled", "reduce")):
+            kind = "elementwise"
+        else:
+            kind = "other"
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        kernels.append((ms, ev.count, ev.key[:90]))
+    kernels.sort(reverse=True)
+    return {"rn50_profiled_device_ms_by_kind": kinds or None,
+            "rn50_profiled_top_kernels": [{"ms": ms, "calls": n, "name": k}
+                                          for ms, n, k in kernels[:10]]}
     return out
 
 
-# -- 7. the block-variant bench (S1) -------------------------------------------------------
+# -- 8. the block-variant bench (S1) -------------------------------------------------------
 
 VARIANTS = (
     "v0 v1 v2 v3 v4 v5 v6 v6g8 v7 v9 v2g8 v2g32 v10 "
@@ -1453,7 +1690,7 @@ def phase_variant_times(torch, np):
     return r
 
 
-# -- 8. the contract line ------------------------------------------------------------
+# -- 9. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -1562,9 +1799,10 @@ def main() -> int:
     counts = {"check": K.launch_counts()}
     cfg, params, counts["main"], data, ref = phase_main(torch, np)
     _, qparams, counts["main_int8"] = phase_main_int8(torch, np, data, ref)
+    rn_cfg, rn_params, counts["runner"] = phase_runner(torch, np)
     times = phase_times(torch, np, params, qparams)
-    phase_encode_times(torch, cfg, params, qparams)
-    del params, qparams
+    phase_encode_times(torch, cfg, params, qparams, rn_cfg, rn_params)
+    del params, qparams, rn_params
     torch.cuda.empty_cache()
     _, counts["variants"] = phase_variants(torch, np)
     vtimes = phase_variant_times(torch, np)

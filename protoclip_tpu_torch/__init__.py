@@ -2,7 +2,8 @@
 NVIDIA H100.
 
 Mirrors the JAX package's layout (``ops``, ``models``, ``memory``,
-``core``, ``eval``, ``data``, ``io``, ``cli``, ``tokenizer``).  The fused
+``core``, ``eval``, ``data``, ``io``, ``obs``, ``train``, ``cli``,
+``tokenizer``).  The fused
 transformer block, in bf16 and in the W8A8 serving mode
 (``$PROTOCLIP_INT8``), is a chain of hand-written CUDA kernels
 (``csrc/``, bound in ``ops/kernels.py``); everything else is plain PyTorch.

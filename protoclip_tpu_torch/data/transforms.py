@@ -1,15 +1,22 @@
 """CLIP image preprocessing (counterpart of ``protoclip_tpu/data/
-transforms.py``): the eval-time PIL decode, resize and crop to uint8 on
-the host, and the normalization on the tensor's device.
+transforms.py``): PIL decode, resize and crop to uint8 on the host, and the
+normalization on the tensor's device.
 
-PIL is imported inside the functions that use it.  The native C++
-resize+crop helper and the train-time transforms come with the host
-data-path slice (ROADMAP.md, port queue 1).
+Eval: Resize(bicubic) -> CenterCrop (``clip/clip.py:77-84``).  Train:
+RandomResizedCrop(scale 0.5-1, bicubic) + HorizontalFlip(0.5)
+(``datasets/imagenet.py:8-23``), drawn from a Python ``random.Random``
+exactly as the JAX package draws them, so a seeded loader picks the same
+crops and flips in both packages.
+
+PIL is imported inside the functions that use it.  The JAX package's
+optional native resize+crop (pixel-exact with this PIL path) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+import random as _random
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +74,77 @@ def clip_preprocess(img, n_px: int = 224) -> np.ndarray:
     if img.mode != "RGB":
         img = img.convert("RGB")
     return np.asarray(center_crop(resize_shorter(img, n_px), n_px), dtype=np.uint8)
+
+
+def sample_rrc_box(w: int, h: int, rng: _random.Random,
+                   scale: Tuple[float, float] = (0.5, 1.0),
+                   ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)
+                   ) -> Tuple[int, int, int, int]:
+    """torchvision RandomResizedCrop box sampling (10 attempts, then a
+    clamped centre crop) -> (left, top, right, bottom)."""
+    area = w * h
+    log_ratio = (math.log(ratio[0]), math.log(ratio[1]))
+    for _ in range(10):
+        target_area = area * rng.uniform(*scale)
+        aspect = math.exp(rng.uniform(*log_ratio))
+        cw = int(round(math.sqrt(target_area * aspect)))
+        ch = int(round(math.sqrt(target_area / aspect)))
+        if 0 < cw <= w and 0 < ch <= h:
+            left = rng.randint(0, w - cw)
+            top = rng.randint(0, h - ch)
+            return left, top, left + cw, top + ch
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        cw, ch = int(round(h * ratio[1])), h
+    else:
+        cw, ch = w, h
+    left, top = (w - cw) // 2, (h - ch) // 2
+    return left, top, left + cw, top + ch
+
+
+def random_resized_crop(img, size: int, rng: _random.Random,
+                        scale: Tuple[float, float] = (0.5, 1.0),
+                        ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)):
+    """torchvision-style RandomResizedCrop of a PIL image."""
+    from PIL import Image
+
+    box = sample_rrc_box(*img.size, rng, scale, ratio)
+    return img.resize((size, size), Image.BICUBIC, box=box)
+
+
+def random_train_transform(img, rng: _random.Random, n_px: int = 224) -> np.ndarray:
+    """Train-time transform: RandomResizedCrop(scale 0.5-1) + HFlip(0.5)
+    -> uint8 (n_px, n_px, 3)."""
+    from PIL import Image
+
+    box = sample_rrc_box(*img.size, rng)
+    flip = rng.random() < 0.5
+    img = img.resize((n_px, n_px), Image.BICUBIC, box=box)
+    if flip:
+        img = img.transpose(Image.FLIP_LEFT_RIGHT)
+    return np.asarray(img, dtype=np.uint8)
+
+
+class EvalTransform:
+    """Eval transform: ``(PIL image, rng) -> uint8 (n_px, n_px, 3)``."""
+
+    def __init__(self, n_px: int = 224):
+        self.n_px = n_px
+
+    def __call__(self, img, rng: Optional[_random.Random] = None) -> np.ndarray:
+        return clip_preprocess(img, self.n_px)
+
+
+class TrainTransform:
+    """Train transform, random from the loader's per-image ``rng``."""
+
+    def __init__(self, n_px: int = 224):
+        self.n_px = n_px
+
+    def __call__(self, img, rng: Optional[_random.Random] = None) -> np.ndarray:
+        return random_train_transform(img, rng or _random, self.n_px)
 
 
 def normalize_batch(images_u8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -20,9 +20,8 @@ features as a tensor (on any device) or an array; the normalization to the
 model's input lives inside it.  The reductions here run in host numpy on the
 fetched features.
 
-``cache`` is any object with the ``FeatureCache`` interface
-(``visual_bank_stems``, ``text_bank_stem``, ``split_stems``, ``load``,
-``save``); the port's ``FeatureCache`` comes with the cache/checkpoint slice.
+``cache`` is a :class:`memory.cache.FeatureCache` (or ``None``: no
+caching).
 """
 
 from __future__ import annotations
@@ -32,9 +31,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from protoclip_tpu_torch.memory.cache import FeatureCache
 from protoclip_tpu_torch.tokenizer import EOT_ID, tokenize
-
-FeatureCache = Any  # the FeatureCache interface, see the module docstring
 
 
 def _to_numpy(x) -> np.ndarray:

@@ -5,7 +5,12 @@ relative to ``torch.nn.Linear``; transformer blocks are a list of per-layer
 dicts with the fused ``wqkv``.
 """
 
-from protoclip_tpu_torch.models.adapters import apply_adapter
+from protoclip_tpu_torch.models.adapters import (
+    adapter_from_torch_state,
+    adapter_to_torch_state,
+    apply_adapter,
+    init_adapter,
+)
 from protoclip_tpu_torch.models.clip import (
     BACKBONE_CONFIGS,
     CLIPConfig,
@@ -22,7 +27,10 @@ from protoclip_tpu_torch.models.clip import (
 )
 
 __all__ = [
+    "adapter_from_torch_state",
+    "adapter_to_torch_state",
     "apply_adapter",
+    "init_adapter",
     "BACKBONE_CONFIGS",
     "CLIPConfig",
     "cast_params",

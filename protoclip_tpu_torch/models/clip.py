@@ -2,15 +2,14 @@
 of ``protoclip_tpu/models/clip.py``).
 
 The same 7 OpenAI backbones, with the architecture taken from the registry
-or inferred from a state dict's tensor shapes.  This slice of the port runs
-the ViT towers; the ResNet towers come with a later slice and raise
-:class:`NotImplementedError` until then.
+or inferred from a state dict's tensor shapes: the ViT towers
+(``models/vit.py``) and the ModifiedResNet towers (``models/resnet.py``).
 
 Parameters are nested dicts of tensors.  Transformer blocks are a list of
 per-layer dicts whose attention carries the fused ``wqkv`` (D, 3D) and
 ``bqkv`` (3D,), built once here rather than on every call.  The compute
 dtype defaults to bfloat16, with LayerNorm affine and ``logit_scale`` kept
-in fp32.
+in fp32, as are a ResNet's folded BatchNorm ``scale``/``bias``.
 
 The W8A8 serving mode (``$PROTOCLIP_INT8``) adds, beside each tower's
 ``blocks``, a ``blocks_q`` list of int8 layers made once at load
@@ -29,14 +28,13 @@ import numpy as np
 import torch
 
 from protoclip_tpu_torch.device import DeviceLike, resolve_device
+from protoclip_tpu_torch.models import resnet as _resnet
 from protoclip_tpu_torch.models import text as _text
 from protoclip_tpu_torch.models import vit as _vit
 from protoclip_tpu_torch.ops.kernels import int8_enabled, quantize_block
 from protoclip_tpu_torch.ops.proto import l2_normalize
 
 Params = Dict[str, Any]
-
-RESNET_SLICE = "the ResNet-tower slice of the port (ROADMAP.md, port queue)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,20 +86,14 @@ BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
 }
 
 
-def _require_vit(cfg: CLIPConfig) -> None:
-    if not cfg.is_vit:
-        raise NotImplementedError(
-            f"{cfg.name}: ResNet image towers are not ported yet; they come with {RESNET_SLICE}"
-        )
-
-
 # -- apply ------------------------------------------------------------------
 
 
 def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
     """(B, H, W, 3) preprocessed images -> (B, embed_dim) features."""
-    _require_vit(cfg)
-    return _vit.apply_vit(params["visual"], images, cfg)
+    if cfg.is_vit:
+        return _vit.apply_vit(params["visual"], images, cfg)
+    return _resnet.apply_resnet(params["visual"], images, cfg)
 
 
 def encode_text(params: Params, tokens: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
@@ -124,9 +116,9 @@ def clip_forward(params: Params, images: torch.Tensor, tokens: torch.Tensor,
 def init_clip_params(rng: np.random.Generator, cfg: CLIPConfig,
                      dtype: torch.dtype = torch.float32) -> Params:
     """Random CLIP parameters from a numpy generator (CPU tensors)."""
-    _require_vit(cfg)
+    init_visual = _vit.init_vit_params if cfg.is_vit else _resnet.init_resnet_params
     return {
-        "visual": _vit.init_vit_params(rng, cfg, dtype),
+        "visual": init_visual(rng, cfg, dtype),
         "text": _text.init_text_params(rng, cfg, dtype),
         "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32),
     }
@@ -180,6 +172,40 @@ def _qblocks_from_jax(stacked: Dict) -> list:
     return [layer(i) for i in range(len(stacked["wqkv"]))]
 
 
+def _vit_from_jax(vis: Dict) -> Params:
+    return {
+        "patch_embed": _t(vis["patch_embed"]),
+        "class_embedding": _t(vis["class_embedding"]),
+        "positional_embedding": _t(vis["positional_embedding"]),
+        "ln_pre": _ln(vis["ln_pre"]["scale"], vis["ln_pre"]["bias"]),
+        "blocks": _blocks_from_jax(vis["blocks"]),
+        "ln_post": _ln(vis["ln_post"]["scale"], vis["ln_post"]["bias"]),
+        "proj": _t(vis["proj"]),
+    }
+
+
+def _resnet_from_jax(vis: Dict) -> Params:
+    def walk(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if key.startswith("conv"):  # HWIO -> OIHW
+            return _resnet.oihw(np.asarray(tree, np.float32).transpose(3, 2, 0, 1))
+        return _t(tree)
+
+    def index(tree, j):
+        if isinstance(tree, dict):
+            return {k: index(v, j) for k, v in tree.items()}
+        return np.asarray(tree)[j]
+
+    out = {"stem": walk(vis["stem"]), "attnpool": walk(vis["attnpool"])}
+    for i in range(1, len(_resnet.LAYER_STRIDES) + 1):
+        layer = vis[f"layer{i}"]
+        rest = layer.get("rest")
+        n_rest = 0 if rest is None else len(rest["conv1"])
+        out[f"layer{i}"] = [walk(layer["block0"])] + [walk(index(rest, j)) for j in range(n_rest)]
+    return out
+
+
 def params_from_jax(np_params: Params, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
                     device: DeviceLike = None) -> Params:
     """The JAX package's CLIP parameters, as numpy arrays, -> the port's.
@@ -189,20 +215,12 @@ def params_from_jax(np_params: Params, cfg: CLIPConfig, dtype: torch.dtype = tor
     ``jax.tree_util.tree_map(np.asarray, ...)``.  Block leaves are
     un-stacked, ``wqkv``/``bqkv`` built, a tower's ``blocks_q`` carried
     into the port's int8 layout, and the result cast as :func:`cast_params`
-    does.
+    does.  A ResNet tower's HWIO conv kernels become OIHW and each layer's
+    stacked ``rest`` is un-stacked into the layer's list after ``block0``.
     """
-    _require_vit(cfg)
     vis, txt = np_params["visual"], np_params["text"]
     params = {
-        "visual": {
-            "patch_embed": _t(vis["patch_embed"]),
-            "class_embedding": _t(vis["class_embedding"]),
-            "positional_embedding": _t(vis["positional_embedding"]),
-            "ln_pre": _ln(vis["ln_pre"]["scale"], vis["ln_pre"]["bias"]),
-            "blocks": _blocks_from_jax(vis["blocks"]),
-            "ln_post": _ln(vis["ln_post"]["scale"], vis["ln_post"]["bias"]),
-            "proj": _t(vis["proj"]),
-        },
+        "visual": _vit_from_jax(vis) if cfg.is_vit else _resnet_from_jax(vis),
         "text": {
             "token_embedding": _t(txt["token_embedding"]),
             "positional_embedding": _t(txt["positional_embedding"]),
@@ -228,18 +246,24 @@ def _np(x) -> np.ndarray:
 
 
 def infer_config_from_state_dict(sd: Dict[str, Any]) -> CLIPConfig:
-    """Shape-based architecture inference (ref ``clip/model.py:397-420``);
-    ViT checkpoints only in this slice."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError(
-            f"ResNet checkpoints are not ported yet; they come with {RESNET_SLICE}"
+    """Shape-based architecture inference (ref ``clip/model.py:397-420``)."""
+    if "visual.proj" in sd:
+        vision_width = sd["visual.conv1.weight"].shape[0]
+        vision_layers = len(
+            [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]
         )
-    vision_width = sd["visual.conv1.weight"].shape[0]
-    vision_layers = len(
-        [k for k in sd if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]
-    )
-    patch = sd["visual.conv1.weight"].shape[-1]
-    grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        patch = int(sd["visual.conv1.weight"].shape[-1])
+        grid = round((sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)
+        image_resolution = patch * grid
+    else:
+        vision_layers = tuple(
+            len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}")})
+            for b in (1, 2, 3, 4)
+        )
+        vision_width = sd["visual.layer1.0.conv1.weight"].shape[0]
+        out_width = round((sd["visual.attnpool.positional_embedding"].shape[0] - 1) ** 0.5)
+        patch = None
+        image_resolution = out_width * 32
     name = next(
         (n for n, c in BACKBONE_CONFIGS.items()
          if c.vision_layers == vision_layers and c.vision_width == vision_width
@@ -249,10 +273,10 @@ def infer_config_from_state_dict(sd: Dict[str, Any]) -> CLIPConfig:
     return CLIPConfig(
         name,
         int(sd["text_projection"].shape[1]),
-        int(patch * grid),
+        int(image_resolution),
         vision_layers,
         int(vision_width),
-        int(patch),
+        patch,
         int(sd["positional_embedding"].shape[0]),
         int(sd["token_embedding.weight"].shape[0]),
         int(sd["ln_final.weight"].shape[0]),
@@ -285,27 +309,68 @@ def _blocks_from_state_dict(sd: Dict[str, np.ndarray], prefix: str, n_layers: in
     return blocks
 
 
+def _fold_bn(sd: Dict[str, np.ndarray], prefix: str, eps: float = 1e-5) -> Dict[str, torch.Tensor]:
+    """Frozen BatchNorm statistics folded in fp32: ``y = x * scale + bias``."""
+    gamma, beta = sd[f"{prefix}.weight"], sd[f"{prefix}.bias"]
+    mean, var = sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"]
+    scale = gamma / np.sqrt(var + eps)
+    return {"scale": _t(scale), "bias": _t(beta - mean * scale)}
+
+
+def _convert_bottleneck(sd: Dict[str, np.ndarray], p: str) -> Params:
+    out = {
+        "conv1": _resnet.oihw(sd[f"{p}.conv1.weight"]), "bn1": _fold_bn(sd, f"{p}.bn1"),
+        "conv2": _resnet.oihw(sd[f"{p}.conv2.weight"]), "bn2": _fold_bn(sd, f"{p}.bn2"),
+        "conv3": _resnet.oihw(sd[f"{p}.conv3.weight"]), "bn3": _fold_bn(sd, f"{p}.bn3"),
+    }
+    if f"{p}.downsample.0.weight" in sd:
+        out["downsample"] = {"conv": _resnet.oihw(sd[f"{p}.downsample.0.weight"]),
+                             "bn": _fold_bn(sd, f"{p}.downsample.1")}
+    return out
+
+
+def _convert_vit(sd: Dict[str, np.ndarray], cfg: CLIPConfig) -> Params:
+    patch = cfg.vision_patch_size
+    # OIHW (width, 3, P, P) -> (P, P, 3, width) -> (P*P*3, width): the
+    # (py, px, c) order of vit.patchify
+    pe = sd["visual.conv1.weight"].transpose(2, 3, 1, 0).reshape(patch * patch * 3, -1)
+    return {
+        "patch_embed": _t(pe),
+        "class_embedding": _t(sd["visual.class_embedding"]),
+        "positional_embedding": _t(sd["visual.positional_embedding"]),
+        "ln_pre": _ln(sd["visual.ln_pre.weight"], sd["visual.ln_pre.bias"]),
+        "blocks": _blocks_from_state_dict(sd, "visual.transformer", cfg.vision_layers),
+        "ln_post": _ln(sd["visual.ln_post.weight"], sd["visual.ln_post.bias"]),
+        "proj": _t(sd["visual.proj"]),
+    }
+
+
+def _convert_resnet(sd: Dict[str, np.ndarray], cfg: CLIPConfig) -> Params:
+    """Conv kernels stay OIHW; BatchNorm is folded (JAX ``clip.py:263-328``)."""
+    visual: Params = {"stem": {}}
+    for i in (1, 2, 3):
+        visual["stem"][f"conv{i}"] = _resnet.oihw(sd[f"visual.conv{i}.weight"])
+        visual["stem"][f"bn{i}"] = _fold_bn(sd, f"visual.bn{i}")
+    for li, blocks in enumerate(cfg.vision_layers):
+        visual[f"layer{li + 1}"] = [
+            _convert_bottleneck(sd, f"visual.layer{li + 1}.{j}") for j in range(blocks)
+        ]
+    pool = "visual.attnpool"
+    visual["attnpool"] = {"positional_embedding": _t(sd[f"{pool}.positional_embedding"])}
+    for name, proj in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"), ("o", "c_proj")):
+        visual["attnpool"][f"w{name}"] = _t(sd[f"{pool}.{proj}.weight"].T)
+        visual["attnpool"][f"b{name}"] = _t(sd[f"{pool}.{proj}.bias"])
+    return visual
+
+
 def convert_clip_state_dict(sd: Dict[str, Any], cfg: Optional[CLIPConfig] = None
                             ) -> Tuple[CLIPConfig, Params]:
     """OpenAI CLIP torch state dict -> (config, fp32 CPU parameters)."""
     sd = {k: _np(v) for k, v in sd.items()
           if k not in ("input_resolution", "context_length", "vocab_size")}
     cfg = cfg or infer_config_from_state_dict(sd)
-    _require_vit(cfg)
-    patch = cfg.vision_patch_size
-    # OIHW (width, 3, P, P) -> (P, P, 3, width) -> (P*P*3, width): the
-    # (py, px, c) order of vit.patchify
-    pe = sd["visual.conv1.weight"].transpose(2, 3, 1, 0).reshape(patch * patch * 3, -1)
     params: Params = {
-        "visual": {
-            "patch_embed": _t(pe),
-            "class_embedding": _t(sd["visual.class_embedding"]),
-            "positional_embedding": _t(sd["visual.positional_embedding"]),
-            "ln_pre": _ln(sd["visual.ln_pre.weight"], sd["visual.ln_pre.bias"]),
-            "blocks": _blocks_from_state_dict(sd, "visual.transformer", cfg.vision_layers),
-            "ln_post": _ln(sd["visual.ln_post.weight"], sd["visual.ln_post.bias"]),
-            "proj": _t(sd["visual.proj"]),
-        },
+        "visual": _convert_vit(sd, cfg) if cfg.is_vit else _convert_resnet(sd, cfg),
         "text": {
             "token_embedding": _t(sd["token_embedding.weight"]),
             "positional_embedding": _t(sd["positional_embedding"]),
@@ -322,8 +387,9 @@ _FP32_KEYS = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final")
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
-    """Cast weights to a compute dtype, keeping LayerNorm affine and
-    ``logit_scale`` in fp32 (they are consumed in fp32 anyway).  The int8
+    """Cast weights to a compute dtype, keeping LayerNorm affine, the
+    folded BatchNorm (``bn*``) and ``logit_scale`` in fp32 (they are
+    consumed in fp32 anyway).  The int8
     layers of ``blocks_q`` pass through untouched: their int8 values and
     fp32 scales are exact as they are."""
 
@@ -334,7 +400,8 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
             return [walk(v, path) for v in tree]
         if "blocks_q" in path:
             return tree
-        keep = any(p in _FP32_KEYS for p in path) or path[-1:] == ("logit_scale",)
+        keep = (any(p in _FP32_KEYS or p.startswith("bn") for p in path)
+                or path[-1:] == ("logit_scale",))
         return tree.float() if keep else tree.to(dtype)
 
     return walk(params, ())
@@ -442,7 +509,6 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
             f"architecture from; known: {sorted(BACKBONE_CONFIGS)}"
         )
     cfg = BACKBONE_CONFIGS[backbone]
-    _require_vit(cfg)
     print(
         f"[protoclip_tpu_torch] WARNING: no weights found for {backbone!r} "
         f"(set ${_WEIGHT_ENV}); using random initialization.",

@@ -41,7 +41,11 @@ def _module_level(tree):
 def test_port_has_files():
     assert len(PORT_FILES) > 20
     rel = {str(p.relative_to(REPO)) for p in PORT_FILES}
-    for module in ("ops/block_variants.py", "scripts/bench_block_variants.py", "ops/kernels.py"):
+    for module in ("ops/block_variants.py", "scripts/bench_block_variants.py", "ops/kernels.py",
+                   "models/resnet.py", "io/checkpoint.py", "io/mat.py", "memory/cache.py",
+                   "data/types.py", "data/splits.py", "data/builders.py", "data/registry.py",
+                   "data/loader.py", "core/config.py", "obs/logging.py", "obs/plots.py",
+                   "train/runner.py", "cli/main.py"):
         assert "protoclip_tpu_torch/" + module in rel, module
 
 

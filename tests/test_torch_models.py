@@ -161,12 +161,14 @@ def test_convert_clip_state_dict_matches_jax(rng):
 
 
 def test_infer_config_matches_jax_and_resnet_is_queued(rng):
-    sd = _tiny_torch_style_state_dict(rng)
-    assert clip.infer_config_from_state_dict(sd) == port_config(jclip.infer_config_from_state_dict(sd))
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        clip.infer_config_from_state_dict({"visual.layer1.0.conv1.weight": np.zeros((1,))})
-    with pytest.raises(NotImplementedError, match="ResNet"):
-        clip.load_clip("RN50", device="cpu")
+    """Both tower kinds infer as in JAX; the ResNet towers, once queued,
+    are ported (tests/test_torch_resnet.py holds them to JAX)."""
+    from tests.test_resnet_parity import _rand_rn_state_dict
+
+    for sd in (_tiny_torch_style_state_dict(rng), _rand_rn_state_dict(rng, 10, (3, 4, 2, 3))):
+        cfg = clip.infer_config_from_state_dict(sd)
+        assert cfg == port_config(jclip.infer_config_from_state_dict(sd))
+    assert cfg.vision_patch_size is None and cfg.vision_layers == (3, 4, 2, 3)
 
 
 def test_golden_tiny_vit_reproduced():
