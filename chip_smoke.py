@@ -41,13 +41,29 @@ Phases, one JSON line each on stdout:
              (K2 launched 0 times) and whose ``test_acc_fixed`` must equal
              the accuracy of the cached features and the reloaded triple;
              RN50's card features held against the fp32 CPU path.
-7. times   - each kernel (CUDA events around one call, and its device
+7. train   - Proto-CLIP-F at ImageNet's shape (``configs/imagenet.yml``:
+             N = 1000, K = 16, RN50's d = 1024, conv-2x, visual bank only)
+             on seeded unit features: ``EpisodicTrainer`` for 20 epochs on
+             the card (ms per epoch, episodes and AdamW steps, the loss
+             curve), its first 2 epochs held against the fp32 CPU run, a
+             run resumed from a snapshot at epoch 10 held bit for bit
+             against the straight one; then ``run(only_test=False)`` with
+             snapshots and a ``resume=True`` run on the runner phase's
+             tree and caches (no encode, no launch), whose saved triple
+             must score ``test_acc_fixed``.
+8. train_qt - F-Q^T through ``train.qt_runner.run_qt`` on ViT-B/16 at full
+             width (bf16, random weights) on a synthetic caltech101 tree of
+             10 x 16 train JPEGs, batch 64, 3 epochs: step ms, images/s, K2
+             launched 12 times every step, the CLIP parameters bit for bit
+             unchanged and the banks and adapter moved; one step held
+             against the CPU in fp32 (query features, loss, parameters).
+9. times   - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
              (images B=256, prompts B=1024), and the encode rates in bf16
              (K2) and int8 (K3), and RN50's image encode in bf16.
-8. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+10. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over every variant at the full
              ViT-B/16 geometry (B=512, LP=200, 12 layers) and four at
@@ -57,9 +73,9 @@ Phases, one JSON line each on stdout:
              batch), twins held to their twin's checksum; then each of its
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times).
-9. kernels - the contract line: every ported kernel with the path or phase
-             that launched it, its launches (by path, the runner's too),
-             error, times and bound.
+11. kernels - the contract line: every ported kernel with the path or phase
+             that launched it, its launches (by path, the runner's and the
+             trainers' too), error, times and bound.
 
 The bf16 paths of the two kernels that carry the blocks run on the tensor
 cores: ``attention_packed.cu`` as mma.sync m16n8k16 (Q, K, V through
@@ -81,10 +97,12 @@ exits non-zero before it; without CUDA the script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bound = max(bytes /
@@ -896,17 +914,17 @@ RUNNER_BATCH = 64
 RN_DAMP = 0.25
 
 
-def write_caltech_tree(np, root):
+def write_caltech_tree(np, root, shots=SHOTS):
     """A synthetic caltech101 tree (the layout of tests/test_e2e.py): N_CLASS
-    folders of class-coloured JPEGs, SHOTS train and N_EVAL / N_CLASS val and
-    test images a class, and the CoOp split JSON."""
+    folders of class-coloured JPEGs, ``shots`` train and N_EVAL / N_CLASS val
+    and test images a class, and the CoOp split JSON."""
     from PIL import Image
 
     np_rng = np.random.default_rng(SEED)
     colours = np_rng.integers(0, 200, (N_CLASS, 3))
     img_dir = os.path.join(root, "caltech-101", "101_ObjectCategories")
     rows = {"train": [], "val": [], "test": []}
-    per_split = (("train", SHOTS), ("val", N_EVAL // N_CLASS), ("test", N_EVAL // N_CLASS))
+    per_split = (("train", shots), ("val", N_EVAL // N_CLASS), ("test", N_EVAL // N_CLASS))
     for c in range(N_CLASS):
         cname = f"class_{c}"
         os.makedirs(os.path.join(img_dir, cname))
@@ -921,16 +939,34 @@ def write_caltech_tree(np, root):
         json.dump(rows, fh)
 
 
-def phase_runner(torch, np):
+@contextlib.contextmanager
+def counting_encodes(calls):
+    """Count the runner's image and text encode calls into ``calls``."""
+    from protoclip_tpu_torch.models import encode_image, encode_text
+    from protoclip_tpu_torch.train import runner
+
+    def counted(fn, kind):
+        def wrapper(*args, **kwargs):
+            calls[kind] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    runner.encode_image = counted(encode_image, "image")
+    runner.encode_text = counted(encode_text, "text")
+    try:
+        yield calls
+    finally:
+        runner.encode_image, runner.encode_text = encode_image, encode_text
+
+
+def phase_runner(torch, np, tmp):
     """Test-only Proto-CLIP on RN50 at full width (224 px, layers 3-4-6-3,
     width 64, embed 1024; random weights, seed 0; bf16) through the port's
     own entry points: ``prepare_experiment`` encodes a synthetic caltech101
-    tree on the card and writes the caches in the reference's tree, a
-    ``_v/_t/_a`` triple is saved, and ``run(only_test=True)`` scores it from
-    the caches alone.  The launch counts are set to 0 just before each of
-    the two runs and read just after it."""
-    import tempfile
-
+    tree on the card and writes the caches in the reference's tree under
+    ``tmp``, a ``_v/_t/_a`` triple is saved, and ``run(only_test=True)``
+    scores it from the caches alone.  The launch counts are set to 0 just
+    before each of the two runs and read just after it."""
     from protoclip_tpu_torch.core import Config, accuracy, from_arrays
     from protoclip_tpu_torch.data import EvalTransform, load_image, normalize_batch
     from protoclip_tpu_torch.io import (checkpoint_paths, load_checkpoint_triple,
@@ -943,18 +979,8 @@ def phase_runner(torch, np):
     from protoclip_tpu_torch.ops import kernels as K
     from protoclip_tpu_torch.train import runner
 
-    calls = {"image": 0, "text": 0}
-
-    def counted(fn, kind):
-        def wrapper(*args, **kwargs):
-            calls[kind] += 1
-            return fn(*args, **kwargs)
-        return wrapper
-
     banks.tokenize = synthetic_tokenize  # the BPE vocab is not in the repository
-    runner.encode_image = counted(encode_image, "image")
-    runner.encode_text = counted(encode_text, "text")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as tmp:
+    with counting_encodes({"image": 0, "text": 0}) as calls:
         write_caltech_tree(np, os.path.join(tmp, "DATA"))
         cfg = Config(dataset="caltech101", root_path=os.path.join(tmp, "DATA"), shots=SHOTS,
                      backbone=RUNNER_BACKBONE, augment_epoch=AUGMENT, alpha=0.5, beta=5.0,
@@ -998,7 +1024,6 @@ def phase_runner(torch, np):
         clip_cfg = setup.clip_cfg
         images = np.stack([EvalTransform(clip_cfg.image_resolution)(load_image(d.impath))
                            for d in setup.dataset.test[:2]])
-    runner.encode_image, runner.encode_text = encode_image, encode_text
 
     k2 = clip_cfg.transformer_layers * prepare_calls["text"]
     require(prepare_calls["image"] > 0 and prepare_calls["text"] > 0,
@@ -1066,7 +1091,7 @@ def phase_runner(torch, np):
           "cos_vs_cpu_fp32_images": cos["bf16"], "cos_vs_cpu_fp32_texts": cos_t.tolist(),
           "image_tower_fp32_cos_vs_cpu": cos["fp32"], "image_tower_fp32_rel_err": rel32,
           "image_tower_bf16_damped_cos_vs_cpu": cos["bf16_damped"], "damp": RN_DAMP})
-    return clip_cfg, setup.clip_params, prepare_counts
+    return clip_cfg, setup, prepare_counts, cfg
 
 
 def damped_resnet(visual):
@@ -1080,7 +1105,372 @@ def damped_resnet(visual):
     return out
 
 
-# -- 7. times ------------------------------------------------------------------------
+# -- 7-8. the trainers ---------------------------------------------------------------
+
+IMAGENET_CONFIG, IMAGENET_CLASSES = "configs/imagenet.yml", 1000
+TRAIN_EPOCHS, TRAIN_HELD_EPOCHS, TRAIN_RESUME_AT = 20, 2, 10
+# card vs CPU fp32, each parameter: max|diff| <= TRAIN_BAR x its max|param| +
+# TRAIN_FLOOR.  cuBLAS and cuDNN sum in another order than the CPU (~1e-6 of
+# a gradient); the floor, a thousandth of one lr-1e-4 step, holds the
+# parameters whose gradient is zero in exact arithmetic (conv-2x's first
+# LayerNorm bias feeds a LayerNorm over the whole map), which both devices
+# move by rounding noise alone.
+TRAIN_BAR, TRAIN_FLOOR = 1e-4, 1e-7
+RUNNER_TRAIN_EPOCHS, RUNNER_SNAPSHOT_EVERY = 4, 2
+
+
+def unit_rows(np, np_rng, n, d):
+    x = np_rng.standard_normal((n, d), dtype=np.float32)
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def param_diffs(torch, params, ref, bar=TRAIN_BAR, floor=TRAIN_FLOOR):
+    """{name: (max|diff|, max|diff| / max|ref|)} of two parameter dicts
+    (tensors), and the names over ``bar`` x max|ref| + ``floor``."""
+    from protoclip_tpu_torch.train.episodic import named_leaves
+
+    want = {n: p.detach().float().cpu() for n, p in named_leaves(ref)}
+    out, over = {}, []
+    for name, p in named_leaves(params):
+        diff = float((p.detach().float().cpu() - want[name]).abs().max())
+        scale = float(want[name].abs().max())
+        out[name] = (diff, diff / scale if scale else None)
+        if diff > bar * scale + floor:
+            over.append(name)
+    return out, over
+
+
+def adam_steps(trainer):
+    """AdamW's step count (every parameter steps together)."""
+    state = trainer.optimizer.state.get(trainer.params["bank_v"], {})
+    return int(float(state["step"])) if "step" in state else 0
+
+
+def cpu_copy(tree):
+    return {k: cpu_copy(v) if isinstance(v, dict) else v.detach().cpu().clone()
+            for k, v in tree.items()}
+
+
+def phase_train(torch, np, tmp, runner_cfg, runner_setup):
+    """Proto-CLIP-F at ImageNet's shape (``configs/imagenet.yml``: RN50's
+    d = 1024, N = 1000, K = 16, conv-2x, train_vis_mem_only, alpha 0.5, beta
+    12, lr 1e-4, L1-L3) on seeded random unit features: a 16000 x 1024 fp32
+    visual bank.  ``EpisodicTrainer`` runs TRAIN_EPOCHS epochs on the card
+    (ms per epoch, episodes and AdamW steps per epoch, the loss curve); the
+    first TRAIN_HELD_EPOCHS are held against the port's fp32 CPU run from
+    the same adapter; TRAIN_RESUME_AT epochs, a snapshot, a fresh trainer
+    restored from it and the rest are held against the straight run.  Then
+    ``run(only_test=False)`` on the ``runner`` phase's tree (RN50, its
+    caches, so it encodes nothing) with snapshots, and a ``resume=True``
+    run; the triple it saves is the one the test phase scores.  The launch
+    counts are set to 0 before and read after each card run (no kernel is
+    on this path: the trainer runs on cached features)."""
+    from protoclip_tpu_torch.core import accuracy, from_arrays, load_config
+    from protoclip_tpu_torch.io import checkpoint_paths, load_checkpoint_triple, load_pkl
+    from protoclip_tpu_torch.models import BACKBONE_CONFIGS, adapter_from_torch_state, init_adapter
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.train import EpisodicTrainer, runner
+    from protoclip_tpu_torch.train.episodic import make_episode_queries
+    from protoclip_tpu_torch.train.resume import load_train_state, save_train_state
+
+    cfg = load_config(IMAGENET_CONFIG)
+    n, k, d = IMAGENET_CLASSES, cfg.shots, BACKBONE_CONFIGS[cfg.backbone].embed_dim
+    np_rng = np.random.default_rng(SEED)
+    keys, bank_t = unit_rows(np, np_rng, n * k, d), unit_rows(np, np_rng, n, d)
+    args = dict(frozen_keys=keys, bank_t_init=bank_t, n_class=n, k_shots=k,
+                adapter_kind=cfg.adapter, alpha=cfg.alpha, beta=cfg.beta, lr=cfg.lr,
+                train_epoch=cfg.train_epoch, losses=tuple(cfg.losses),
+                train_vis_mem_only=cfg.train_vis_mem_only, seed=cfg.seed,
+                adapter_init=init_adapter(torch.Generator().manual_seed(cfg.seed), d, cfg.adapter))
+
+    def epochs(trainer, count):
+        stats = []
+        for _ in range(count):
+            steps = adam_steps(trainer)
+            valid = make_episode_queries(
+                np.random.default_rng(trainer.seed + trainer.epoch * 65537), n, k)[3]
+            t0 = time.perf_counter()
+            out = trainer.run_epoch()  # ends in a synchronizing read of its sums
+            ms = (time.perf_counter() - t0) * 1e3
+            require(adam_steps(trainer) - steps == int(valid.sum()),
+                    f"{adam_steps(trainer) - steps} AdamW steps for {int(valid.sum())} episodes")
+            stats.append({**out, "ms": ms, "episodes": int(valid.sum()),
+                          "adamw_steps": adam_steps(trainer) - steps})
+        return stats
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    card = EpisodicTrainer(**args)
+    curve = epochs(card, TRAIN_HELD_EPOCHS)
+    held = cpu_copy(card.params)
+    curve += epochs(card, TRAIN_EPOCHS - TRAIN_HELD_EPOCHS)
+    counts = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    for row in curve:
+        require(np.isfinite(row["loss"]) and 0.0 <= row["acc"] <= 1.0, f"epoch stats {row}")
+    require(curve[-1]["loss"] < curve[0]["loss"], "the loss did not fall in 20 epochs")
+
+    t0 = time.perf_counter()
+    cpu = EpisodicTrainer(**args, device="cpu")
+    cpu_curve = epochs(cpu, TRAIN_HELD_EPOCHS)
+    cpu_s = time.perf_counter() - t0
+    diffs, over = param_diffs(torch, held, cpu.params)
+    loss_diffs = [abs(a["loss"] - b["loss"]) for a, b in zip(curve, cpu_curve)]
+    require(not over and max(ld / b["loss"] for ld, b in zip(loss_diffs, cpu_curve)) <= TRAIN_BAR,
+            f"card vs CPU after {TRAIN_HELD_EPOCHS} epochs: {diffs}, loss {loss_diffs}")
+
+    path = os.path.join(tmp, "imagenet_train_state.pkl")
+    half = EpisodicTrainer(**args)
+    epochs(half, TRAIN_RESUME_AT)
+    save_train_state(path, half, extra={"at": TRAIN_RESUME_AT})
+    resumed = EpisodicTrainer(**args)
+    require(load_train_state(path, resumed) == (TRAIN_RESUME_AT, {"at": TRAIN_RESUME_AT}),
+            "the snapshot's epoch")
+    epochs(resumed, TRAIN_EPOCHS - TRAIN_RESUME_AT)
+    resume_diffs, resume_over = param_diffs(torch, resumed.params, card.params, 0.0, 0.0)
+    bit_exact = not resume_over
+    require(bit_exact, f"resumed vs straight run: {resume_diffs} (cuDNN deterministic was set)")
+
+    # where an epoch's time goes: the host's sampler alone, and one more
+    # epoch's device time under the profiler
+    t0 = time.perf_counter()
+    make_episode_queries(np.random.default_rng(resumed.seed + resumed.epoch * 65537), n, k)
+    sampler_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        resumed.run_epoch()
+        torch.cuda.synchronize()
+    profiled = device_ms_by_kind(prof, "epoch")
+    del card, half, resumed, held
+    torch.cuda.empty_cache()
+
+    # the runner on the runner phase's tree: trains from its caches
+    cfg_r = dataclasses.replace(runner_cfg, only_test=False, train_epoch=RUNNER_TRAIN_EPOCHS,
+                                snapshot_every=RUNNER_SNAPSHOT_EVERY)
+    runs = {}
+    with counting_encodes({"image": 0, "text": 0}) as calls:
+        for name, cfg_run in (("train", cfg_r), ("resume", dataclasses.replace(cfg_r, resume=True))):
+            calls.update(image=0, text=0)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = runner.run(cfg_run, progress=False)
+            torch.cuda.synchronize()
+            runs[name] = {"s": time.perf_counter() - t0, "encode_calls": dict(calls),
+                          "launches": K.launch_counts(), "result": result}
+    for name, r in runs.items():
+        require(r["encode_calls"] == {"image": 0, "text": 0} and not any(r["launches"].values()),
+                f"run({name}) encoded {r['encode_calls']} with launches {r['launches']}")
+    a, b = runs["train"]["result"], runs["resume"]["result"]
+    require(a.best_epoch >= 0 and (a.best_val_acc, a.best_epoch, a.test_acc_fixed)
+            == (b.best_val_acc, b.best_epoch, b.test_acc_fixed),
+            f"resumed run {b} differs from {a}")
+    paths = checkpoint_paths(cfg_r.cache_dir, cfg_r.backbone, cfg_r.shots, cfg_r.alpha,
+                             cfg_r.beta, cfg_r.lr, cfg_r.augment_epoch, cfg_r.train_epoch)
+    snapshot = load_pkl(runner.snapshot_path(paths[0]))
+    require(snapshot["epoch"] == RUNNER_TRAIN_EPOCHS, f"snapshot at epoch {snapshot['epoch']}")
+    bank_v, bank_t_r, state = load_checkpoint_triple(*paths)
+    model = from_arrays(bank_v, bank_t_r, adapter_from_torch_state(state, cfg_r.adapter),
+                        cfg_r.adapter, cfg_r.shots)
+    acc = accuracy(model, runner_setup.test_feats, runner_setup.test_labels, cfg_r.alpha,
+                   cfg_r.beta)
+    require(abs(acc - a.test_acc_fixed) <= 1e-6,
+            f"test_acc_fixed {a.test_acc_fixed} but the saved triple scores {acc}")
+
+    ms = sorted(row["ms"] for row in curve)
+    emit({"phase": "train", "config": IMAGENET_CONFIG, "n_class": n, "shots": k, "d": d,
+          "adapter": cfg.adapter, "train_vis_mem_only": cfg.train_vis_mem_only,
+          "alpha": cfg.alpha, "beta": cfg.beta, "lr": cfg.lr, "losses": list(cfg.losses),
+          "features": "seeded random unit rows", "bank_v": [n * k, d], "epochs": TRAIN_EPOCHS,
+          "median_ms_per_epoch": ms[len(ms) // 2], "first_epoch_ms": curve[0]["ms"],
+          "ms_per_epoch": [row["ms"] for row in curve],
+          "episodes_per_epoch": [row["episodes"] for row in curve],
+          "adamw_steps_per_epoch": [row["adamw_steps"] for row in curve],
+          "loss_curve": [row["loss"] for row in curve], "acc_curve": [row["acc"] for row in curve],
+          "peak_memory_gib": peak_gb, "launches": counts,
+          "vs_cpu_fp32": {"epochs": TRAIN_HELD_EPOCHS, "cpu_s": cpu_s, "bar": TRAIN_BAR,
+                          "floor": TRAIN_FLOOR, "loss_abs_diff": loss_diffs,
+                          "max_abs_diff_and_rel_by_param": diffs},
+          "resume": {"at": TRAIN_RESUME_AT, "of": TRAIN_EPOCHS, "bit_exact": bit_exact},
+          "host_sampler_ms": sampler_ms, **profiled,
+          "runner": {"backbone": cfg_r.backbone, "epochs": RUNNER_TRAIN_EPOCHS,
+                     "snapshot_every": RUNNER_SNAPSHOT_EVERY,
+                     "train_s": runs["train"]["s"], "resume_s": runs["resume"]["s"],
+                     "encode_calls": runs["train"]["encode_calls"],
+                     "best_val_acc": a.best_val_acc, "best_epoch": a.best_epoch,
+                     "test_acc_fixed": a.test_acc_fixed,
+                     "test_acc_fixed_of_saved_triple": acc,
+                     "test_acc_searched": a.test_acc_searched}})
+    return counts
+
+
+QT_BACKBONE, QT_SHOTS, QT_BATCH, QT_EPOCHS = "ViT-B/16", 16, 64, 3
+# one Q^T step, card vs CPU: on the card's own query features the CPU's fp32
+# step within TRAIN_BAR (as above); against the CPU's fp32 features (row
+# cosine >= 0.999 in bf16), the loss within 1e-2 of its size and the update
+# of all parameters at a cosine >= 0.99
+QT_LOSS_BAR, QT_UPDATE_COSINE = 1e-2, 0.99
+
+
+def phase_train_qt(torch, np, tmp):
+    """Proto-CLIP-F-Q^T through ``train.qt_runner.run_qt`` on ViT-B/16 at full
+    width (224 px, 12 layers, D = 768; random weights, seed 0; bf16) on a
+    synthetic caltech101 tree of N_CLASS x QT_SHOTS train JPEGs, batch
+    QT_BATCH, QT_EPOCHS epochs (caltech101's operating point, with the
+    textual bank trained).  Every step's frozen encode must launch K2 once a
+    layer; the CLIP parameters must stay bit for bit and the banks and the
+    adapter move.  Then the first batch's step again on fresh trainers: on
+    the card, and in fp32 on the CPU (on the card's features and on its
+    own).  The launch counts are set to 0 before ``run_qt`` and read after
+    it."""
+    from protoclip_tpu_torch.core import Config
+    from protoclip_tpu_torch.memory import banks
+    from protoclip_tpu_torch.models import init_adapter, load_clip
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.train import QTTrainer
+    from protoclip_tpu_torch.train.episodic import named_leaves
+    from protoclip_tpu_torch.train.qt_runner import run_qt
+
+    banks.tokenize = synthetic_tokenize
+    root = os.path.join(tmp, "DATA_QT")
+    write_caltech_tree(np, root, shots=QT_SHOTS)
+    cfg = Config(dataset="caltech101", root_path=root, shots=QT_SHOTS, backbone=QT_BACKBONE,
+                 augment_epoch=AUGMENT, alpha=0.8, beta=9.0, adapter="conv-3x", lr=1e-4,
+                 train_epoch=QT_EPOCHS, batch_size=QT_BATCH, only_test=False,
+                 cache_root=os.path.join(tmp, "caches_qt"),
+                 logs_dir_path=os.path.join(tmp, "logs_qt"), compute_dtype="bfloat16")
+
+    steps, seen = [], {}
+    train_step = QTTrainer.train_step
+
+    def timed_step(self, images, labels, n_valid):
+        if not seen:
+            seen.update(trainer=self, batch=(images.copy(), labels.copy(), n_valid),
+                        clip=[t.clone() for t in tensors(self.clip_params)])
+        torch.cuda.synchronize()
+        k2 = K.launch_counts()["fused_transformer_block"]
+        t0 = time.perf_counter()
+        out = train_step(self, images, labels, n_valid)  # ends in a synchronizing read
+        steps.append({"s": time.perf_counter() - t0, "t_end": time.perf_counter(),
+                      "k2": K.launch_counts()["fused_transformer_block"] - k2,
+                      "n_valid": n_valid, "epoch": self.epoch})
+        return out
+
+    QTTrainer.train_step = timed_step
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run_qt(cfg, progress=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        QTTrainer.train_step = train_step
+
+    trainer = seen["trainer"]
+    layers = trainer.clip_cfg.vision_layers
+    per_epoch = -(-N_CLASS * QT_SHOTS // QT_BATCH)
+    require(len(steps) == QT_EPOCHS * per_epoch, f"{len(steps)} steps")
+    require(all(st["k2"] == layers for st in steps) and counts["fused_transformer_block"] > 0,
+            f"K2 launches per step {[st['k2'] for st in steps]}, expected {layers}")
+    require(all(torch.equal(a, b) for a, b in zip(tensors(trainer.clip_params), seen["clip"])),
+            "the CLIP parameters changed in training")
+    init = {"bank_v": trainer.bank_v_init, "bank_t": trainer.bank_t_init}
+    adapter0 = init_adapter(torch.Generator().manual_seed(cfg.seed), trainer.bank_v_init.shape[1],
+                            cfg.adapter)
+    init.update({f"adapter/{name}": v for name, v in named_leaves(adapter0)})
+    moved = {name: float((p.detach().float().cpu() - torch.as_tensor(init[name])).abs().max())
+             for name, p in named_leaves(trainer.params)}
+    require(moved["bank_v"] > 0 and moved["bank_t"] > 0
+            and any(v > 0 for name, v in moved.items() if name.startswith("adapter/")),
+            f"parameters that moved: {moved}")
+    step_s = sorted(st["s"] for st in steps)
+    loops = []
+    for e in range(QT_EPOCHS):
+        ep = [st for st in steps if st["epoch"] == e]
+        loops.append(sum(st["n_valid"] for st in ep[1:])
+                     / max(ep[-1]["t_end"] - ep[0]["t_end"], 1e-9))
+
+    # the first batch's step, card vs CPU fp32
+    images, labels, n_valid = seen["batch"]
+    kw = dict(bank_v_init=trainer.bank_v_init, bank_t_init=trainer.bank_t_init,
+              n_class=trainer.n_class, k_shots=trainer.k_shots, adapter_kind=cfg.adapter,
+              alpha=cfg.alpha, beta=cfg.beta, lr=cfg.lr, train_epoch=cfg.train_epoch,
+              seed=cfg.seed, adapter_init=adapter0)
+    _, cpu_params = load_clip(QT_BACKBONE, dtype=torch.float32, device="cpu", seed=0)
+    card = QTTrainer(clip_params=trainer.clip_params, clip_cfg=trainer.clip_cfg, **kw)
+    cpu_own = QTTrainer(clip_params=cpu_params, clip_cfg=trainer.clip_cfg, device="cpu",
+                        compute_dtype="float32", **kw)
+    cpu_on_card = QTTrainer(clip_params=cpu_params, clip_cfg=trainer.clip_cfg, device="cpu",
+                            compute_dtype="float32", **kw)
+    zq_card, zq_cpu = card.encode(images), cpu_own.encode(images)
+    cos = row_cosines(torch, zq_card.cpu(), zq_cpu)[:n_valid]
+    got = card.step_on_features(zq_card, labels, n_valid)
+    want = cpu_on_card.step_on_features(zq_card.cpu(), labels, n_valid)
+    full = cpu_own.step_on_features(zq_cpu, labels, n_valid)
+    diffs, over = param_diffs(torch, card.params, cpu_on_card.params)
+    init_t = {name: torch.as_tensor(v).float() for name, v in init.items()}
+    upd_card = torch.cat([(p.detach().cpu() - init_t[name]).flatten()
+                          for name, p in named_leaves(card.params)])
+    upd_cpu = torch.cat([(p.detach() - init_t[name]).flatten()
+                         for name, p in named_leaves(cpu_own.params)])
+    upd_cos = float(upd_card @ upd_cpu / (upd_card.norm() * upd_cpu.norm()))
+    loss_rel = abs(got["loss"] - full["loss"]) / abs(full["loss"])
+    require(float(cos.min()) >= 0.999, f"query features card vs CPU fp32: cosines {cos.tolist()}")
+    require(not over and abs(got["loss"] - want["loss"]) <= TRAIN_BAR * abs(want["loss"]),
+            f"step on the card's features, card vs CPU: {diffs}, loss {got} vs {want}")
+    require(loss_rel <= QT_LOSS_BAR and upd_cos >= QT_UPDATE_COSINE,
+            f"step card (bf16) vs CPU fp32: loss {got['loss']} vs {full['loss']}, "
+            f"update cosine {upd_cos}")
+    del cpu_params, cpu_own, cpu_on_card
+
+    # the same step with no loader decoding beside it, and its device time
+    quiet = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.train_step(images, labels, n_valid)
+        quiet.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        card.train_step(images, labels, n_valid)
+        torch.cuda.synchronize()
+    profiled = device_ms_by_kind(prof, "step")
+    del card
+
+    emit({"phase": "train_qt", "backbone": QT_BACKBONE, "dtype": "bfloat16",
+          "weights": "random, seed 0", "dataset": "synthetic caltech101 tree",
+          "n_class": N_CLASS, "shots": QT_SHOTS, "batch": QT_BATCH, "epochs": QT_EPOCHS,
+          "adapter": cfg.adapter, "steps": len(steps), "run_qt_s": run_s,
+          "median_step_ms": step_s[len(step_s) // 2] * 1e3,
+          "step_ms": [st["s"] * 1e3 for st in steps],
+          "train_step_images_per_s": sum(st["n_valid"] for st in steps) / sum(step_s),
+          "loop_images_per_s_by_epoch": loops,
+          "quiet_step_ms": sorted(quiet)[len(quiet) // 2], **profiled,
+          "k2_launches_per_step": [st["k2"] for st in steps], "launches": counts,
+          "clip_params_bit_identical": True, "max_abs_moved": moved,
+          "best_val_acc": result.best_val_acc, "best_epoch": result.best_epoch,
+          "test_acc_fixed": result.test_acc_fixed,
+          "one_step_vs_cpu_fp32": {
+              "feature_cosines": cos.tolist(), "loss_card": got["loss"],
+              "loss_cpu_on_card_features": want["loss"], "loss_cpu_fp32": full["loss"],
+              "loss_rel_vs_cpu_fp32": loss_rel, "update_cosine_vs_cpu_fp32": upd_cos,
+              "on_card_features_max_abs_diff_and_rel_by_param": diffs}})
+    return counts
+
+
+def tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors(v)
+    else:
+        yield tree
+
+
+# -- 9. times ------------------------------------------------------------------------
 
 TIME_RUNS = 12
 
@@ -1356,8 +1746,8 @@ def phase_encode_times(torch, cfg, params, qparams, rn_cfg, rn_params):
     emit(out)
 
 
-def device_ms_by_kind(prof):
-    """One profiled encode's device time by kind of kernel (convolutions and
+def device_ms_by_kind(prof, prefix="rn50_profiled"):
+    """One profiled call's device time by kind of kernel (convolutions and
     products, pools, elementwise passes) and its ten longest kernels."""
     kinds, kernels = {}, []
     for ev in prof.key_averages():
@@ -1376,13 +1766,13 @@ def device_ms_by_kind(prof):
         kinds[kind] = kinds.get(kind, 0.0) + ms
         kernels.append((ms, ev.count, ev.key[:90]))
     kernels.sort(reverse=True)
-    return {"rn50_profiled_device_ms_by_kind": kinds or None,
-            "rn50_profiled_top_kernels": [{"ms": ms, "calls": n, "name": k}
-                                          for ms, n, k in kernels[:10]]}
+    return {f"{prefix}_device_ms_by_kind": kinds or None,
+            f"{prefix}_top_kernels": [{"ms": ms, "calls": n, "name": k}
+                                      for ms, n, k in kernels[:10]]}
     return out
 
 
-# -- 8. the block-variant bench (S1) -------------------------------------------------------
+# -- 10. the block-variant bench (S1) -------------------------------------------------------
 
 VARIANTS = (
     "v0 v1 v2 v3 v4 v5 v6 v6g8 v7 v9 v2g8 v2g32 v10 "
@@ -1690,7 +2080,7 @@ def phase_variant_times(torch, np):
     return r
 
 
-# -- 9. the contract line ------------------------------------------------------------
+# -- 11. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -1799,7 +2189,13 @@ def main() -> int:
     counts = {"check": K.launch_counts()}
     cfg, params, counts["main"], data, ref = phase_main(torch, np)
     _, qparams, counts["main_int8"] = phase_main_int8(torch, np, data, ref)
-    rn_cfg, rn_params, counts["runner"] = phase_runner(torch, np)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        rn_cfg, rn_setup, counts["runner"], runner_cfg = phase_runner(torch, np, tmp)
+        counts["train"] = phase_train(torch, np, tmp, runner_cfg, rn_setup)
+        counts["train_qt"] = phase_train_qt(torch, np, tmp)
+    rn_params = rn_setup.clip_params
+    del rn_setup
+    torch.cuda.empty_cache()
     times = phase_times(torch, np, params, qparams)
     phase_encode_times(torch, cfg, params, qparams, rn_cfg, rn_params)
     del params, qparams, rn_params

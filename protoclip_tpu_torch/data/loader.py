@@ -48,6 +48,12 @@ class BatchLoader:
     def __len__(self) -> int:
         return (len(self.items) + self.batch_size - 1) // self.batch_size
 
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the epoch that seeds the shuffle and the per-image draws: a
+        resumed run (``train/resume.py``) that calls this replays the
+        batches an uninterrupted run would see."""
+        self._epoch = int(epoch)
+
     @property
     def num_items(self) -> int:
         return len(self.items)

@@ -1,5 +1,6 @@
-"""Numeric ops: LayerNorm, QuickGELU, attention, prototype math, and the
-hand-written CUDA kernels of the transformer block (``ops.kernels``)."""
+"""Numeric ops: LayerNorm, QuickGELU, attention, prototype math, the
+training losses, and the hand-written CUDA kernels of the transformer block
+(``ops.kernels``)."""
 
 from protoclip_tpu_torch.ops.activations import quick_gelu
 from protoclip_tpu_torch.ops.attention import (
@@ -8,6 +9,7 @@ from protoclip_tpu_torch.ops.attention import (
     multi_head_attention,
 )
 from protoclip_tpu_torch.ops.layernorm import layer_norm
+from protoclip_tpu_torch.ops.losses import info_nce, nll_of_probs, protoclip_loss
 from protoclip_tpu_torch.ops.proto import (
     class_prototypes,
     l2_normalize,
@@ -23,6 +25,9 @@ __all__ = [
     "cross_attention_single_query",
     "multi_head_attention",
     "layer_norm",
+    "info_nce",
+    "nll_of_probs",
+    "protoclip_loss",
     "class_prototypes",
     "l2_normalize",
     "proto_logits",

@@ -1,17 +1,18 @@
-"""The experiment runner, its test-only half (counterpart of
-``protoclip_tpu/train/runner.py``; the reference's ``main()`` +
-``run_proto_clip()``, ``main.py:105-552``):
+"""The experiment runner (counterpart of ``protoclip_tpu/train/runner.py``;
+the reference's ``main()`` + ``run_proto_clip()``, ``main.py:105-552``):
 
 1. load CLIP, build the dataset and its loaders;
 2. build or load the visual and textual memory banks and the val/test
    features (cached in the reference's tree);
 3. the zero-shot alpha/beta sweep (cached);
-4. test a ``_v/_t/_a`` checkpoint at the config's (alpha, beta) and at
-   re-searched ones.
+4. unless ``only_test``, train (the episodic Proto-CLIP-F trainer here, the
+   F-Q^T trainer in ``train/qt_runner.py``), saving the ``_v/_t/_a``
+   triple at each best val accuracy and, every ``snapshot_every`` epochs,
+   the trainer's state for ``resume``;
+5. test the triple at the config's (alpha, beta) and at re-searched ones.
 
-Training (the episodic Proto-CLIP-F trainer, ``only_test=False``) is not
-ported yet: :func:`run` raises for it.  The JAX runner's post-test t-SNE
-plot of the prototypes is left out until the toolkit slice.
+The JAX runner's post-test t-SNE plot of the prototypes is left out until
+the toolkit slice.
 """
 
 from __future__ import annotations
@@ -37,17 +38,26 @@ from protoclip_tpu_torch.eval.gridsearch import (
     sweep_to_triples,
     triples_to_sweep,
 )
-from protoclip_tpu_torch.io.checkpoint import checkpoint_paths, load_checkpoint_triple
+from protoclip_tpu_torch.io.checkpoint import (
+    checkpoint_paths,
+    load_checkpoint_triple,
+    save_checkpoint_triple,
+)
 from protoclip_tpu_torch.memory import (
     FeatureCache,
     build_textual_memory_bank,
     build_visual_memory_bank,
     pre_load_features,
 )
-from protoclip_tpu_torch.models import adapter_from_torch_state, encode_image, encode_text, load_clip
+from protoclip_tpu_torch.models import (
+    adapter_from_torch_state,
+    adapter_to_torch_state,
+    encode_image,
+    encode_text,
+    load_clip,
+)
 from protoclip_tpu_torch.obs.logging import MetricLogger
-
-TRAINING_SLICE = "ROADMAP.md queue 1 item 4 (the Proto-CLIP-F trainer)"
+from protoclip_tpu_torch.train.episodic import EpisodicTrainer
 
 
 def make_encode_fns(cfg: Config, device: DeviceLike = None):
@@ -274,32 +284,162 @@ def evaluate_checkpoint(cfg: Config, setup: ExperimentSetup, ckpt_paths_vta, alp
     )
 
 
+# per-term TensorBoard tags of the reference (main.py:287-302,
+# main.qt.py:227-243), shared by both training loops
+TERM_TAGS = {
+    "L1": "Loss/train/L1-negLog",
+    "L2": "Loss/train/L2-img2txt_align",
+    "L3": "Loss/train/L3-txt2img_align",
+    "L4": "Loss/train/L4-img_inter_cluster",
+    "L5": "Loss/train/L5-txt_inter_cluster",
+}
+
+
+def log_epoch_scalars(logger: MetricLogger, epoch: int, *, train_loss: float, val_loss: float,
+                      train_acc: float, val_acc: float, lr: float,
+                      term_values: Dict[str, float]) -> None:
+    """One epoch's scalar block (both runners; ref ``main.py:372-378``)."""
+    logger.scalar("Loss/train", train_loss, epoch)
+    logger.scalar("Loss/val", val_loss, epoch)
+    logger.scalar("Accuracy/train", train_acc, epoch)
+    logger.scalar("Accuracy/val", val_acc, epoch)
+    logger.scalar("HP/lr", lr, epoch)
+    for term, tag in TERM_TAGS.items():
+        if term in term_values:
+            logger.scalar(tag, term_values[term], epoch)
+
+
+def save_model_checkpoint(model, adapter_kind: str, paths) -> None:
+    """Write a model's ``_v/_t/_a`` triple (the best-val save of both
+    runners, ref ``main.py:350-369``)."""
+    save_checkpoint_triple(*paths, model.bank_v, model.bank_t,
+                           adapter_to_torch_state(model.adapter, adapter_kind))
+
+
+def snapshot_path(ckpt_v: str) -> str:
+    """The trainer-state snapshot beside the triple, under the triple's own
+    lr/aug/epochs prefix: the alpha-beta directory is shared by every
+    (lr, augment_epoch, train_epoch) operating point, so a bare name there
+    would let another operating point resume from this one's state."""
+    stem = os.path.basename(ckpt_v)
+    suffix = "_v.pt"
+    stem = stem[: -len(suffix)] if stem.endswith(suffix) else os.path.splitext(stem)[0]
+    return os.path.join(os.path.dirname(ckpt_v), f"{stem}_train_state.pkl")
+
+
+def maybe_resume(cfg: Config, trainer, snap_path: str, best_val: float, best_epoch: int,
+                 progress: bool):
+    """With ``cfg.resume`` and a snapshot at ``snap_path``: restore the
+    trainer and the best-val bookkeeping (so a post-resume epoch never
+    replaces a better checkpoint).  Returns (start epoch, best val, best
+    epoch)."""
+    if not cfg.resume or not os.path.exists(snap_path):
+        return 0, best_val, best_epoch
+    from protoclip_tpu_torch.train.resume import load_train_state
+
+    start_epoch, extra = load_train_state(snap_path, trainer)
+    best_val = float(extra.get("best_val", best_val))
+    best_epoch = int(extra.get("best_epoch", best_epoch))
+    if progress:
+        print(f"[resume] restored {snap_path} at epoch {start_epoch} "
+              f"(best val {best_val*100:.2f}% @ {best_epoch})")
+    return start_epoch, best_val, best_epoch
+
+
+def maybe_snapshot(cfg: Config, trainer, snap_path: str, epoch: int, best_val: float,
+                   best_epoch: int) -> None:
+    """The preemption snapshot, every ``cfg.snapshot_every`` epochs."""
+    if cfg.snapshot_every and (epoch + 1) % cfg.snapshot_every == 0:
+        from protoclip_tpu_torch.train.resume import save_train_state
+
+        save_train_state(snap_path, trainer, extra={"best_val": best_val, "best_epoch": best_epoch})
+
+
+def make_val_metrics_fn(val_feats, val_labels, alpha: float, beta: float,
+                        device: DeviceLike = None) -> Callable:
+    """``model -> (val accuracy, val loss)`` at a fixed (alpha, beta), the
+    features moved to ``device`` once.  The val loss is the reference's: the
+    NLL of the *predicted* class (``main.py:341-344``), not of the true one."""
+    dev = resolve_device(device)
+    feats = torch.as_tensor(np.asarray(val_feats, np.float32)).to(dev)
+    labels = torch.as_tensor(np.asarray(val_labels)).to(dev).long()
+
+    @torch.inference_mode()
+    def val_metrics(model):
+        p = model.probs(feats, alpha, beta)
+        acc = (p.argmax(dim=-1) == labels).float().mean()
+        loss = -torch.log(p.max(dim=-1).values + 1e-12).mean()
+        return float(acc), float(loss)
+
+    return val_metrics
+
+
+def fit(cfg: Config, trainer, setup: ExperimentSetup, paths, logger: MetricLogger,
+        progress: bool, desc: str, run_epoch: Callable[[int], Dict[str, float]]):
+    """The training loop both runners share (ref ``main.py:216-381``):
+    resume if asked, then per epoch ``run_epoch(epoch)`` (its stats: loss,
+    acc, lr and the loss terms), the val metrics of ``trainer.model()``, the
+    epoch's scalars, the triple at each val accuracy >= the best so far, and
+    the periodic snapshot.  Returns (best val accuracy, its epoch)."""
+    val_metrics = make_val_metrics_fn(setup.val_feats, setup.val_labels, cfg.alpha, cfg.beta,
+                                      setup.device)
+    snap_path = snapshot_path(paths[0])
+    start_epoch, best_val, best_epoch = maybe_resume(cfg, trainer, snap_path, 0.0, -1, progress)
+    epochs = range(start_epoch, cfg.train_epoch)
+    if progress:
+        from tqdm import tqdm
+
+        epochs = tqdm(epochs, desc=desc, initial=start_epoch, total=cfg.train_epoch)
+    for epoch in epochs:
+        stats = run_epoch(epoch)
+        model = trainer.model()
+        va, vl = val_metrics(model)
+        log_epoch_scalars(logger, epoch, train_loss=stats["loss"], val_loss=vl,
+                          train_acc=stats["acc"], val_acc=va, lr=stats["lr"],
+                          term_values={t: stats[t] for t in TERM_TAGS if t in stats})
+        if va >= best_val:
+            best_val, best_epoch = va, epoch
+            save_model_checkpoint(model, cfg.adapter, paths)
+        maybe_snapshot(cfg, trainer, snap_path, epoch, best_val, best_epoch)
+    if progress:
+        print(f"Best val acc {best_val*100:.2f}% @ epoch {best_epoch}")
+    return best_val, best_epoch
+
+
 def run(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = None,
         device: DeviceLike = None) -> ExperimentResult:
     """Run one Proto-CLIP experiment from a config, on ``device`` (default:
-    the card).  Only ``cfg.only_test`` runs are ported: the checkpoint
-    triple at the config's operating point is tested against the cached
-    (or freshly built) banks and features."""
+    the card): prepare, the zero-shot sweep, the episodic Proto-CLIP-F
+    trainer (unless ``cfg.only_test``) and the test of the best triple at
+    the config's operating point.  Training runs on one device: an episode
+    is an AdamW step over at most a few thousand d-dim rows."""
     cfg.validate()
-    if not cfg.only_test:
-        raise NotImplementedError(
-            f"training is not ported yet; it comes with {TRAINING_SLICE}. "
-            "Run with only_test=True (--only_test) against an existing checkpoint triple."
-        )
     own_logger = logger is None
     logger = logger or MetricLogger(os.path.join(cfg.logs_dir_path, cfg.dataset))
     try:
         setup = prepare_experiment(cfg, progress, device)
         zs = zero_shot_sweep_phase(cfg, setup, logger, progress)
         # the reference overrides the searched HPs with the config's
-        # (main.py:213-214): the checkpoint is tested at the tuned point
+        # (main.py:213-214): training and the test run at the tuned point
         alpha, beta = cfg.alpha, cfg.beta
         paths = checkpoint_paths(cfg.cache_dir, cfg.backbone, cfg.shots, alpha, beta,
                                  cfg.lr, cfg.augment_epoch, cfg.train_epoch)
+        best_val, best_epoch = 0.0, -1
+        if not cfg.only_test:
+            trainer = EpisodicTrainer(
+                frozen_keys=setup.bank_v, bank_t_init=setup.bank_t,
+                n_class=setup.dataset.num_classes, k_shots=cfg.shots, adapter_kind=cfg.adapter,
+                alpha=alpha, beta=beta, lr=cfg.lr, train_epoch=cfg.train_epoch,
+                losses=tuple(cfg.losses), train_vis_mem_only=cfg.train_vis_mem_only,
+                seed=cfg.seed, device=setup.device,
+            )
+            best_val, best_epoch = fit(cfg, trainer, setup, paths, logger, progress,
+                                       f"train {cfg.dataset}", lambda epoch: trainer.run_epoch())
         result = evaluate_checkpoint(cfg, setup, paths, alpha, beta, logger, progress)
     finally:
         if own_logger:
             logger.close()
         else:
             logger.flush()
-    return dataclasses.replace(result, zero_shot=zs)
+    return dataclasses.replace(result, zero_shot=zs, best_val_acc=best_val,
+                               best_epoch=best_epoch)

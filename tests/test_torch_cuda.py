@@ -529,3 +529,101 @@ def test_cuda_resnet_tower_matches_cpu(cuda_device, dtype):
         assert float(out.flatten() @ ref.flatten() / (out.norm() * ref.norm())) >= 0.99999
     else:
         assert float(torch.nn.functional.cosine_similarity(out, ref, dim=-1).min()) >= 0.999
+
+
+def _train_problem(n_class=20, k_shots=4, d=64, seed=0):
+    """Class-direction features plus noise, as the CPU trainer tests draw them."""
+    rng = np.random.default_rng(seed)
+    protos = rng.standard_normal((n_class, d)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=-1, keepdims=True)
+    keys = protos.repeat(k_shots, 0) + 0.1 * rng.standard_normal((n_class * k_shots, d),
+                                                                 dtype=np.float32)
+    keys /= np.linalg.norm(keys, axis=-1, keepdims=True)
+    return keys, protos + 0.05 * rng.standard_normal((n_class, d), dtype=np.float32)
+
+
+def _assert_trained_alike(card, cpu, bar=1e-4):
+    """The card's trained parameters within ``bar`` of max|parameter| of the
+    CPU's: cuBLAS and cuDNN sum in another order than the CPU."""
+    from protoclip_tpu_torch.train.episodic import named_leaves
+
+    ref = {n: p.detach() for n, p in named_leaves(cpu.params)}
+    scale = max(float(p.abs().max()) for p in ref.values())
+    for name, p in named_leaves(card.params):
+        assert p.is_cuda
+        assert float((p.detach().cpu() - ref[name]).abs().max()) <= bar * scale, name
+
+
+@pytest.mark.cuda
+def test_cuda_episodic_epoch_matches_cpu(cuda_device):
+    """One EpisodicTrainer epoch (conv-2x, L1-L3, fp32) on the card against
+    the same epoch on the CPU from the same adapter: loss and acc within
+    1e-4, parameters within 1e-4 of max|parameter|."""
+    from protoclip_tpu_torch.models.adapters import init_adapter
+    from protoclip_tpu_torch.train.episodic import EpisodicTrainer
+
+    keys, bank_t = _train_problem()
+    adapter = init_adapter(torch.Generator().manual_seed(0), keys.shape[1], "conv-2x")
+    args = dict(frozen_keys=keys, bank_t_init=bank_t, n_class=20, k_shots=4,
+                adapter_kind="conv-2x", alpha=0.5, beta=12.0, lr=1e-3, train_epoch=10,
+                adapter_init=adapter)
+    card, cpu = EpisodicTrainer(**args, device=cuda_device), EpisodicTrainer(**args, device="cpu")
+    got, want = card.run_epoch(), cpu.run_epoch()
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key] == pytest.approx(want[key], abs=1e-4), key
+    _assert_trained_alike(card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_cuda_qt_step_matches_cpu(cuda_device, dtype):
+    """One QTTrainer step on a small ViT (2 layers, width 64) on the card:
+    its frozen encode launches K2 once a layer (or K3 in the int8 mode, not
+    set here) and leaves the CLIP parameters as they were; against the same
+    step in fp32 on the CPU the query features keep a row cosine >= 0.999
+    (bf16) / 0.99999 (fp32), the loss and parameters the bars above (bf16:
+    1e-2, the features' rounding reaches the adapter's gradient)."""
+    from protoclip_tpu_torch.models import clip
+    from protoclip_tpu_torch.models.adapters import init_adapter
+    from protoclip_tpu_torch.train.qt import QTTrainer
+
+    cfg = clip.CLIPConfig("tiny-vit", embed_dim=64, image_resolution=32, vision_layers=2,
+                          vision_width=64, vision_patch_size=16, context_length=16,
+                          vocab_size=128, transformer_width=64, transformer_layers=1)
+    cpu_params = clip.init_clip_params(np.random.default_rng(0), cfg)
+    card_params = clip.to_device(clip.cast_params(cpu_params, dtype), cuda_device)
+    before = [t.clone() for t in _tensors(card_params)]
+    keys, bank_t = _train_problem(n_class=3, k_shots=2, d=64)
+    adapter = init_adapter(torch.Generator().manual_seed(0), 64, "fc")
+    args = dict(bank_v_init=keys, bank_t_init=bank_t, n_class=3, k_shots=2, adapter_kind="fc",
+                alpha=0.5, beta=5.0, lr=1e-3, train_epoch=4, adapter_init=adapter)
+    card = QTTrainer(clip_params=card_params, clip_cfg=cfg, device=cuda_device,
+                     compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32", **args)
+    cpu = QTTrainer(clip_params=cpu_params, clip_cfg=cfg, device="cpu", compute_dtype="float32",
+                    **args)
+    images = np.random.default_rng(1).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    labels = np.asarray([0, 1, 2, 0, 1, 2, 0, 0], np.int32)
+    cos = torch.nn.functional.cosine_similarity(card.encode(images).cpu(), cpu.encode(images),
+                                                dim=-1)
+    assert float(cos.min()) >= (0.999 if dtype == torch.bfloat16 else 0.99999)
+    kernels.reset_launch_counts()
+    got = card.train_step(images, labels, 6)
+    assert kernels.launch_counts()["fused_transformer_block"] == cfg.vision_layers
+    want = cpu.train_step(images, labels, 6)
+    bar = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert got["loss"] == pytest.approx(want["loss"], abs=bar)
+    _assert_trained_alike(card, cpu, bar)
+    for t, b in zip(_tensors(card_params), before):
+        assert torch.equal(t, b)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree

@@ -45,7 +45,9 @@ def test_port_has_files():
                    "models/resnet.py", "io/checkpoint.py", "io/mat.py", "memory/cache.py",
                    "data/types.py", "data/splits.py", "data/builders.py", "data/registry.py",
                    "data/loader.py", "core/config.py", "obs/logging.py", "obs/plots.py",
-                   "train/runner.py", "cli/main.py"):
+                   "train/runner.py", "cli/main.py", "ops/losses.py", "train/optim.py",
+                   "train/episodic.py", "train/resume.py", "train/qt.py",
+                   "train/qt_runner.py", "data/query.py"):
         assert "protoclip_tpu_torch/" + module in rel, module
 
 
