@@ -57,13 +57,28 @@ Phases, one JSON line each on stdout:
              launched 12 times every step, the CLIP parameters bit for bit
              unchanged and the banks and adapter moved; one step held
              against the CPU in fp32 (query features, loss, parameters).
-9. times   - each kernel (CUDA events around one call, and its device
+9. toolkit - the deployment toolkit on ViT-L/14 at full width (bf16,
+             random weights) with configs/fewsol_198.yml's classifier over a
+             FewSOL-198-shaped triple (198 classes x K = 16, fc adapter):
+             ``toolkit.ProtoClipClassifier`` (buckets 1, 8, 16) on the robot
+             path without ROS (a 480 x 640 RGB-D frame -> crops ->
+             ``classify_objects`` -> ``select_spoken_target``, held against
+             its rule -> 3-D boxes -> the canvas), K2 launched once a layer a
+             classify call; 8 canvases held against the same classifier in
+             fp32 on the CPU (features, top-k, buckets, a model swap); the
+             classify call's host ms, device ms and idle share at 1, 8 and 16
+             canvases; all of it again in the W8A8 mode (K3); and
+             ``toolkit.test_ood_performance`` on an imagenet_v2-layout tree,
+             its accuracy against the CPU's, then from its cache with no
+             launch.
+10. times  - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
-             (images B=256, prompts B=1024), and the encode rates in bf16
-             (K2) and int8 (K3), and RN50's image encode in bf16.
-10. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+             (images B=256, prompts B=1024) and at the classifier's ViT-L/14
+             image block (B=16), and the encode rates in bf16 (K2) and int8
+             (K3), and RN50's image encode in bf16.
+11. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over every variant at the full
              ViT-B/16 geometry (B=512, LP=200, 12 layers) and four at
@@ -72,8 +87,9 @@ Phases, one JSON line each on stdout:
              B=16, layer 0's block and int8s's attention core at the full
              batch), twins held to their twin's checksum; then each of its
              modes, kernels and sites timed alone and held to its check rule
-             at the bench geometry (variant_times).
-11. kernels - the contract line: every ported kernel with the path or phase
+             at the bench geometry (variant_times), the int8 attention core
+             also at ViT-L/14's (B=128, LP=264).
+12. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches (by path, the runner's and the
              trainers' too), error, times and bound.
 
@@ -1459,6 +1475,442 @@ def phase_train_qt(torch, np, tmp):
     return counts
 
 
+# -- 9. the deployment toolkit: ViT-L/14 at FewSOL-198's shape -------------------------
+
+TOOLKIT_CONFIG = "configs/fewsol_198.yml"
+TOOLKIT_MAX_BATCH, TOOLKIT_BUCKETS = 16, (1, 8, 16)  # each bucket is timed full
+TOOLKIT_N_CLASS = 198
+FRAME_HW = (480, 640)
+MIN_SIZE = 5  # crop_object_images' default: masks this narrow are dropped
+OOD_CLASSES, OOD_PER_CLASS = 20, 4
+# the classify call's device time is read behind a longer spin than the
+# kernels' (~100 ms): the spin must outlast the host's time to issue 24
+# blocks, which classify_times measures and requires
+CLASSIFY_SPIN_CYCLES = 200_000_000
+
+
+def write_fewsol_checkpoint(torch, np, cfg, root):
+    """A FewSOL-198-shaped ``_v/_t/_a`` triple in the config's cache tree
+    (198 classes x K = 16, d = ViT-L/14's 768, an fc adapter; unit rows
+    drawn from the seed), written with the port's save_checkpoint_triple,
+    and a 198-class split JSON.  Returns (triple paths, split path)."""
+    from protoclip_tpu_torch.io import checkpoint_paths, save_checkpoint_triple
+    from protoclip_tpu_torch.models import BACKBONE_CONFIGS, adapter_to_torch_state, init_adapter
+
+    d = BACKBONE_CONFIGS[cfg.backbone].embed_dim
+    np_rng = np.random.default_rng(SEED)
+    paths = checkpoint_paths(cfg.cache_dir, cfg.backbone, cfg.shots, cfg.alpha, cfg.beta,
+                             cfg.lr, cfg.augment_epoch, cfg.train_epoch)
+    adapter = init_adapter(torch.Generator().manual_seed(SEED), d, cfg.adapter)
+    save_checkpoint_triple(*paths, unit_rows(np, np_rng, TOOLKIT_N_CLASS * cfg.shots, d),
+                           unit_rows(np, np_rng, TOOLKIT_N_CLASS, d),
+                           adapter_to_torch_state(adapter, cfg.adapter))
+    split = os.path.join(root, "fewsol_splits_198.json")
+    rows = [[f"object_{c:03d}/{k}.png", c, f"object_{c:03d}"]
+            for c in range(TOOLKIT_N_CLASS) for k in range(cfg.shots)]
+    with open(split, "w") as fh:
+        json.dump({"train": rows, "val": [], "test": []}, fh)
+    return paths, split
+
+
+def synthetic_rgbd_frame(np):
+    """A 480 x 640 RGB-D frame with a segmentation: 9 objects of 60-150 px
+    on a table at ~1 m, and 3 masks of 3 x 3 px (below ``MIN_SIZE``, so
+    ``crop_object_images`` drops them, and their 3 x 3 erosion leaves one
+    point, so ``segmentation_boxes_3d`` drops them too).  Returns (rgb, depth in metres,
+    label, score, intrinsics, the ids crop_object_images keeps)."""
+    np_rng = np.random.default_rng(SEED)
+    h, w = FRAME_HW
+    rgb = np_rng.integers(0, 56, (h, w, 3)).astype(np.int64) + 100
+    depth = 1.0 + np_rng.uniform(-0.002, 0.002, (h, w))
+    label = np.zeros((h, w), np.int32)
+    kept = []
+    for i in range(9):
+        top, left = 20 + (i // 3) * 155, 20 + (i % 3) * 205
+        oh, ow = 60 + 10 * i, 80 + 8 * i
+        label[top:top + oh, left:left + ow] = i + 1
+        rgb[top:top + oh, left:left + ow] = np_rng.integers(0, 200, 3) + np_rng.integers(
+            0, 56, (oh, ow, 3))
+        depth[top:top + oh, left:left + ow] -= np_rng.uniform(0.05, 0.3) + np_rng.uniform(
+            0, 0.02, (oh, ow))
+        kept.append(i + 1)
+    for j, (top, left) in enumerate(((470, 5), (5, 630), (300, 630))):
+        label[top:top + 3, left:left + 3] = 10 + j
+    score = np.where(label > 0, 0.9, 0.0).astype(np.float32)
+    intrinsics = np.asarray([[525.0, 0, 319.5], [0, 525.0, 239.5], [0, 0, 1]])
+    return rgb.astype(np.uint8), depth.astype(np.float32), label, score, intrinsics, kept
+
+
+def most_predicted_name(names):
+    """The class name that appears in most crops' top-k (the first such in
+    crop order on a tie): the noun the fake speech command asks for."""
+    seen = {}
+    for row in names:
+        for name in row:
+            seen[name] = seen.get(name, 0) + 1
+    return max(seen, key=seen.get)
+
+
+def classify_times(torch, np, clf, canvases, block):
+    """Per ``infer_canvases`` call at 1, 8 and 16 canvases: the median host
+    wall ms of TIME_RUNS calls after two warm-ups (upload, padding,
+    normalization and the read-back included); the host ms to issue the
+    call's launches (``_infer`` on the uploaded bucket, not waited for); the
+    device ms of its encode and head (:func:`device_ms` behind
+    CLASSIFY_SPIN_CYCLES, on normalized images: the normalization's small
+    host-to-device copies of its constants wait for the stream, so they
+    stay out of the queued call); the launches of one call, which must be
+    ``block`` once a layer; and the share of the wall time the device is
+    idle."""
+    from protoclip_tpu_torch.data import normalize_batch
+    from protoclip_tpu_torch.ops import kernels as K
+
+    layers = clf.clip_cfg.vision_layers
+    out = {}
+    for n in TOOLKIT_BUCKETS:
+        batch = canvases[:n]
+        clf.infer_canvases(batch)
+        clf.infer_canvases(batch)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        clf.infer_canvases(batch)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        require(launches.get(block) == layers,
+                f"a {n}-canvas classify call launched {launches}, expected {block} x {layers}")
+        walls = []
+        for _ in range(TIME_RUNS):
+            t0 = time.perf_counter()
+            clf.infer_canvases(batch)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = sorted(walls)[len(walls) // 2]
+        bucket = next(b for b in clf.batch_buckets if b >= n)
+        padded = np.zeros((bucket,) + batch.shape[1:], np.uint8)
+        padded[:n] = batch
+        dev = torch.from_numpy(padded).cuda()
+        issues = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clf._infer(dev)
+            issues.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        images = normalize_batch(dev, clf._dtype)
+
+        def queued():
+            return clf._top_k(clf._features(images))
+
+        spin = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        spin[0].record()
+        torch.cuda._sleep(CLASSIFY_SPIN_CYCLES)
+        spin[1].record()
+        t0 = time.perf_counter()
+        queued()
+        queued_issue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin_ms = spin[0].elapsed_time(spin[1])
+        require(spin_ms > queued_issue, f"the spin ({spin_ms} ms) did not cover the host's "
+                                        f"issue time ({queued_issue} ms)")
+        dev_ms = device_ms(torch, queued, spin_cycles=CLASSIFY_SPIN_CYCLES)
+        out[str(n)] = {"bucket": bucket, "host_wall_ms": wall,
+                       "host_issue_ms": sorted(issues)[2], "device_ms": dev_ms,
+                       "idle_share": 1.0 - dev_ms / wall, "launches": launches,
+                       "spin_ms": spin_ms, "queued_issue_ms": queued_issue}
+        del dev, images
+    return out
+
+
+def phase_toolkit(torch, np, tmp):
+    """The deployment toolkit through its entry points on ViT-L/14 at full
+    width (224 px, 24 layers, D = 1024; random weights, seed 0, bf16), with
+    ``configs/fewsol_198.yml``'s classifier (fc adapter, K = 16, alpha 0.2,
+    beta 12, top_k 5) over a FewSOL-198-shaped triple and split:
+
+    - the robot path without ROS: a synthetic RGB-D frame -> crop_object_
+      images -> classify_objects (logged) -> select_spoken_target on a noun
+      from the predictions (held against the rule computed directly) ->
+      segmentation_boxes_3d -> the prediction canvas; its launch counts are
+      set to 0 just before the classify call and read just after;
+    - the card against the CPU: 8 canvases through the same classifier in
+      fp32 on the CPU (features: row cosine >= 0.999), the CPU's top-k on
+      the card's features (within 1e-5, equal ids), padded buckets against
+      the full batch, a model swap; an fp32 tower on the card beside them;
+    - the classify call timed at 1, 8 and 16 canvases (:func:`classify_times`);
+    - all of it again in the W8A8 mode (K3; cosine >= 0.995);
+    - ``test_ood_performance`` through ``make_encode_fns`` on an
+      imagenet_v2-layout tree of JPEGs with sidecar junk, its accuracy
+      against the CPU's from the card's features, and again from its
+      FeatureCache, which must launch nothing.
+
+    Returns (the robot path's launches in bf16, in int8, the bf16 and the
+    int8 CLIP parameters)."""
+    from PIL import Image
+
+    from protoclip_tpu_torch.core import accuracy, from_arrays, load_config
+    from protoclip_tpu_torch.data import normalize_batch
+    from protoclip_tpu_torch.io import load_checkpoint_triple, save_checkpoint_triple
+    from protoclip_tpu_torch.memory import FeatureCache
+    from protoclip_tpu_torch.models import adapter_from_torch_state, encode_image
+    from protoclip_tpu_torch.models.clip import to_device
+    from protoclip_tpu_torch.models.layers import transformer
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.ops.proto import l2_normalize
+    from protoclip_tpu_torch.toolkit import ProtoClipClassifier, test_ood_performance
+    from protoclip_tpu_torch.toolkit.robot import (backproject, crop_object_images,
+                                                   segmentation_boxes_3d, select_spoken_target)
+    from protoclip_tpu_torch.train.runner import make_encode_fns
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "toolkit")
+    cfg = load_config(TOOLKIT_CONFIG, cache_root=os.path.join(root, "caches"),
+                      compute_dtype="bfloat16")
+    paths, split = write_fewsol_checkpoint(torch, np, cfg, root)
+    rgb, depth, label, score, intrinsics, kept = synthetic_rgbd_frame(np)
+
+    def classifier(cfg, device=None):
+        t0 = time.perf_counter()
+        clf = ProtoClipClassifier(cfg, splits_path=split, max_batch=TOOLKIT_MAX_BATCH,
+                                  batch_buckets=TOOLKIT_BUCKETS, device=device)
+        torch.cuda.synchronize()
+        return clf, time.perf_counter() - t0
+
+    def robot_path(clf, mode):
+        crops, mask_ids = crop_object_images(label, rgb, MIN_SIZE)
+        require(mask_ids == kept, f"crop_object_images kept {mask_ids}, expected {kept}")
+        log_dir = os.path.join(root, f"logs_{mode}")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        names, probs = clf.classify_objects(crops, log=True, rgb_image=rgb, log_dir=log_dir)
+        classify_ms = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+        noun = most_predicted_name(names)
+        chosen = select_spoken_target(names, probs, noun)
+        # the rule, directly: the highest probability at the noun's position
+        at_noun = np.full(len(names), -np.inf)
+        for i, row in enumerate(names):
+            if noun in row:
+                at_noun[i] = probs[i, row.index(noun)]
+        want = int(np.argmax(at_noun))
+        require(chosen is not None and chosen[0] == want and chosen[1] == at_noun[want],
+                f"select_spoken_target chose {chosen}, the rule {want} ({at_noun[want]})")
+        boxes = segmentation_boxes_3d(backproject(depth, intrinsics), label, score, depth,
+                                      np.eye(4))
+        require(boxes.shape == (len(kept), 8) and np.isfinite(boxes).all()
+                and sorted(boxes[:, 7].astype(int).tolist()) == kept,
+                f"segmentation_boxes_3d gave {boxes.shape}, ids {boxes[:, 7].tolist()}")
+        canvas, texts = clf.draw_image_with_top_k_images(crops, names, probs)
+        require(canvas.size == (650, max(325, 40 + (len(crops) + 1) // 2 * 160))
+                and len(texts) == len(crops), f"canvas {canvas.size}")
+        require(len(os.listdir(log_dir)) == 1, "classify_objects wrote no .npy log")
+        require(probs.shape == (len(crops), cfg.top_k) and np.isfinite(probs).all()
+                and (np.diff(probs, axis=1) <= 0).all(), f"top-k probabilities {probs.shape}")
+        pre = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            clf._preprocess_crops(crops)
+            pre.append((time.perf_counter() - t0) * 1e3 / len(crops))
+        return crops, counts, {
+            "crops": len(crops), "masks": int(label.max()), "mask_ids_kept": mask_ids,
+            "classify_objects_ms": classify_ms, "launches": {k: v for k, v in counts.items() if v},
+            "noun": noun, "selected_crop": chosen[0], "selected_mask_id": mask_ids[chosen[0]],
+            "selected_prob": chosen[1], "crops_predicting_noun": int(np.isfinite(at_noun).sum()),
+            "top1": [row[0] for row in names], "boxes_3d": len(boxes),
+            "preprocess_ms_per_crop": sorted(pre)[2]}
+
+    failures = []
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    def held_against_cpu(clf, cpu, cpu_feats, canvases, bar, bucket_bars):
+        """The card's classifier against the CPU's on 8 canvases, its padded
+        buckets against the full batch, and a model swap.  The checks are
+        collected in ``failures`` and raised after the phase's line."""
+        batch = canvases[:8]
+        with torch.inference_mode():
+            x = torch.from_numpy(canvases).cuda()
+            feats = clf._encode(x[:8])
+            card_p, card_i = clf._top_k(feats)
+            cpu_p, cpu_i = cpu._top_k(feats.cpu())
+            # the image tower's stack of fused blocks alone, on one seeded
+            # input, at batch 1 and 5 against 16: each row computed alone
+            visual = clf._clip_params["visual"]
+            ccfg = clf.clip_cfg
+            tokens = (ccfg.image_resolution // ccfg.vision_patch_size) ** 2 + 1
+            h = torch.randn(TOOLKIT_MAX_BATCH, tokens, ccfg.vision_width, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(SEED))
+            h = h.to(torch.bfloat16)
+            stack = [transformer(h[:n], visual["blocks"], ccfg.vision_heads,
+                                 qblocks=visual.get("blocks_q")) for n in (1, 5, 16)]
+            full_f = clf._encode(x)
+            full_p = clf.model.probs(full_f, clf.cfg.alpha, clf.cfg.beta)
+            pad = {}
+            for n in (1, 5, 8):  # buckets 1, 8 (padded) and 8
+                bucket = next(b for b in clf.batch_buckets if b >= n)
+                rows = torch.zeros_like(x[:bucket])
+                rows[:n] = x[:n]
+                f = clf._encode(rows)[:n]
+                pad[str(n)] = {"bucket": bucket,
+                               "feature_cos_min": float(row_cosines(torch, f, full_f[:n]).min()),
+                               **bars_agreement(clf.model.probs(f, clf.cfg.alpha, clf.cfg.beta),
+                                                full_p[:n], bucket_bars)}
+        cos = row_cosines(torch, feats.cpu(), cpu_feats)
+        p, i = clf.infer_canvases(batch)
+        _, full_i = clf.infer_canvases(canvases)
+        for n in (1, 5, 8):
+            pad[str(n)]["topk_ids_equal"] = bool(np.array_equal(clf.infer_canvases(
+                canvases[:n])[1], full_i[:n]))
+        model = clf.model
+        clf.model = dataclasses.replace(model, bank_t=torch.roll(model.bank_t, 1, dims=0))
+        swapped_p, swapped_i = clf.infer_canvases(batch)
+        clf.model = model
+        held = {
+            "feature_cos_vs_cpu_fp32": cos.tolist(),
+            "topk_cpu_on_card_features_max_abs_diff": float((card_p.cpu() - cpu_p).abs().max()),
+            "topk_ids_equal": bool(torch.equal(card_i.cpu(), cpu_i)),
+            "infer_vs_halves_max_abs_diff": float(np.abs(p - card_p.cpu().numpy()).max()),
+            "block_stack_rows_bit_identical_at_1_5_16": bool(
+                torch.equal(stack[0], stack[2][:1]) and torch.equal(stack[1], stack[2][:5])),
+            "block_stack_rows_max_abs_diff": float(max(
+                (stack[0] - stack[2][:1]).abs().max(), (stack[1] - stack[2][:5]).abs().max())),
+            "bucket_rows_vs_full_batch": pad,
+            "model_swap_changed_output": bool(not np.array_equal(swapped_i, i)
+                                              or not np.allclose(swapped_p, p)),
+        }
+        check(float(cos.min()) >= bar, f"card vs CPU fp32 feature cosine {cos.tolist()} < {bar}")
+        check(held["topk_ids_equal"] and held["topk_cpu_on_card_features_max_abs_diff"] <= 1e-5,
+              "the CPU's top-k on the card's features differ from the card's")
+        check(np.array_equal(i, card_i.cpu().numpy()) and held["infer_vs_halves_max_abs_diff"]
+              <= 1e-6, "infer_canvases differs from its two halves on the same batch")
+        check(held["block_stack_rows_bit_identical_at_1_5_16"],
+              "the fused-block stack's rows depend on the batch")
+        check(all(v["feature_cos_min"] >= bucket_bars[1] and v["ok"] for v in pad.values()),
+              f"padded buckets off the full batch: {pad}")
+        check(held["model_swap_changed_output"], "swapping clf.model changed nothing")
+        return held
+
+    clf, load_s = classifier(cfg)
+    crops, counts, robot = robot_path(clf, "bf16")
+    px = clf.clip_cfg.image_resolution
+    canvases = np.concatenate([clf._preprocess_crops(crops),
+                               np.random.default_rng(SEED).integers(
+                                   0, 256, (TOOLKIT_MAX_BATCH - len(crops), px, px, 3),
+                                   dtype=np.uint8)])
+    cpu, cpu_load_s = classifier(dataclasses.replace(cfg, compute_dtype="float32"), "cpu")
+    t0 = time.perf_counter()
+    cpu_feats = cpu._encode(torch.from_numpy(canvases[:8]))  # outside the int8 mode
+    cpu_encode_s = time.perf_counter() - t0
+    held = held_against_cpu(clf, cpu, cpu_feats, canvases, 0.999, BARS["bfloat16"])
+    # an fp32 tower on the card beside the bf16 one (K2's fp32 kernels)
+    with torch.inference_mode():
+        card32 = to_device({"visual": cpu._clip_params["visual"]}, torch.device("cuda"))
+        f32 = encode_image(card32, normalize_batch(torch.from_numpy(canvases[:8]).cuda()),
+                           cpu.clip_cfg)
+        f32 = l2_normalize(f32.float()).cpu()
+    held["fp32_tower_cos_vs_cpu"] = row_cosines(torch, f32, cpu_feats).tolist()
+    held["fp32_tower_rel_err"] = float((f32 - cpu_feats).abs().max() / cpu_feats.abs().max())
+    del card32, f32
+    times = classify_times(torch, np, clf, canvases, "fused_transformer_block")
+    require(counts["fused_transformer_block"] == clf.clip_cfg.vision_layers
+            and counts["fused_transformer_block_int8"] == 0,
+            f"the robot path's classify call launched {counts}")
+
+    with int8_mode():
+        clf8, load8_s = classifier(cfg)
+        crops8, counts8, robot8 = robot_path(clf8, "int8")
+        held8 = held_against_cpu(clf8, cpu, cpu_feats, canvases, 0.995,
+                                 INT8_BLOCK_BARS["bfloat16"])
+        times8 = classify_times(torch, np, clf8, canvases, "fused_transformer_block_int8")
+    require(counts8["fused_transformer_block_int8"] == clf8.clip_cfg.vision_layers
+            and counts8["fused_transformer_block"] == 0,
+            f"the int8 robot path's classify call launched {counts8}")
+    del cpu
+
+    # OOD: an imagenet_v2-layout tree of class-coloured JPEGs through
+    # make_encode_fns, then from its cache: with the FewSOL triple, and with a
+    # triple fitted to the cached features (its first OOD_CLASSES classes'
+    # banks are those classes' features, no adapter), whose accuracy is not 0
+    ood_root = os.path.join(root, "imagenet_v2")
+    np_rng = np.random.default_rng(SEED)
+    colours = np_rng.integers(0, 200, (OOD_CLASSES, 3))
+    for c in range(OOD_CLASSES):
+        os.makedirs(os.path.join(ood_root, str(c)))
+        for k in range(OOD_PER_CLASS):
+            pixels = colours[c] + np_rng.integers(0, 56, (240, 320, 3))
+            Image.fromarray(pixels.astype(np.uint8)).save(
+                os.path.join(ood_root, str(c), f"{k}.jpeg"), quality=90)
+    with open(os.path.join(ood_root, "0", ".DS_Store"), "wb") as fh:
+        fh.write(b"\x00\x01junk")
+    with open(os.path.join(ood_root, "1", "README.txt"), "w") as fh:
+        fh.write("not an image\n")
+    t0 = time.perf_counter()
+    encode_fn, _, clip_cfg, _ = make_encode_fns(cfg)
+    ood_load_s = time.perf_counter() - t0
+    cache = FeatureCache(cfg.cache_dir, cfg.backbone, cfg.shots)
+    stems = cache.split_stems("ood_imagenet_v2")
+    triples = {"fewsol": paths, "fitted": [os.path.join(root, f"fitted_{s}.pt") for s in "vta"]}
+    ood = {}
+    for run, triple in (("encoded", "fewsol"), ("cached", "fewsol"), ("cached_fitted", "fitted")):
+        if triple == "fitted":
+            feats = cache.load(stems[0])["features"]
+            labels = cache.load(stems[1])["labels"]
+            bank_v = unit_rows(np, np_rng, TOOLKIT_N_CLASS * cfg.shots, clip_cfg.embed_dim)
+            bank_t = unit_rows(np, np_rng, TOOLKIT_N_CLASS, clip_cfg.embed_dim)
+            for c in range(OOD_CLASSES):
+                own = feats[labels == c]
+                bank_v[c * cfg.shots:(c + 1) * cfg.shots] = np.resize(own, (cfg.shots, own.shape[1]))
+                bank_t[c] = own.mean(axis=0)
+            save_checkpoint_triple(*triples["fitted"], bank_v, bank_t, {})
+        v, t, a = triples[triple]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        acc = test_ood_performance(cfg, "imagenet_v2", encode_fn, ood_root, cache=cache,
+                                   memory_bank_v_path=v, memory_bank_t_path=t,
+                                   adapter_weights_path=a, image_size=clip_cfg.image_resolution)
+        torch.cuda.synchronize()
+        ood[run] = {"triple": triple, "accuracy": acc, "s": time.perf_counter() - t0,
+                    "launches": {k: n for k, n in K.launch_counts().items() if n}}
+        # the same accuracy on the CPU from the card's (cached) features
+        bank_v, bank_t, state = load_checkpoint_triple(v, t, a)
+        cpu_model = from_arrays(bank_v, bank_t,
+                                adapter_from_torch_state(state, cfg.adapter) if state else {},
+                                cfg.adapter, cfg.shots, device="cpu")
+        feats = cache.load(stems[0])["features"]
+        labels = cache.load(stems[1])["labels"]
+        ood[run]["cpu_accuracy_on_card_features"] = accuracy(
+            cpu_model, feats, labels, cfg.alpha, cfg.beta) * 100.0
+    n_ood = OOD_CLASSES * OOD_PER_CLASS
+    batches = -(-n_ood // cfg.batch_size)
+    require(feats.shape == (n_ood, clip_cfg.embed_dim) and np.isfinite(feats).all()
+            and sorted(set(labels.tolist())) == list(range(OOD_CLASSES)),
+            f"OOD features {feats.shape}, labels {sorted(set(labels.tolist()))}")
+    require(ood["encoded"]["launches"].get("fused_transformer_block")
+            == clip_cfg.vision_layers * batches,
+            f"the OOD run launched {ood['encoded']['launches']}")
+    require(not ood["cached"]["launches"] and not ood["cached_fitted"]["launches"],
+            f"a cached OOD run launched kernels: {ood}")
+    require(ood["encoded"]["accuracy"] == ood["cached"]["accuracy"]
+            and all(o["accuracy"] == o["cpu_accuracy_on_card_features"] for o in ood.values()),
+            f"OOD accuracies {ood}: the card's and the CPU's differ")
+
+    emit({"phase": "toolkit", "config": TOOLKIT_CONFIG, "backbone": cfg.backbone,
+          "dtype": "bfloat16", "weights": "random, seed 0", "n_class": TOOLKIT_N_CLASS,
+          "shots": cfg.shots, "adapter": cfg.adapter, "alpha": cfg.alpha, "beta": cfg.beta,
+          "top_k": cfg.top_k, "max_batch": TOOLKIT_MAX_BATCH, "buckets": list(TOOLKIT_BUCKETS),
+          "frame": list(FRAME_HW), "load_s": {"bf16": load_s, "int8": load8_s,
+                                               "cpu_fp32": cpu_load_s, "ood": ood_load_s},
+          "cpu_fp32_encode_8_s": cpu_encode_s,
+          "robot": robot, "held": held, "classify_times": times,
+          "int8": {"robot": robot8, "held": held8, "classify_times": times8},
+          "ood": {**ood, "images": n_ood, "classes": OOD_CLASSES},
+          "failures": failures, "seconds": time.perf_counter() - t_phase})
+    require(not failures, f"toolkit checks failed: {failures}")
+    return counts, counts8, clf._clip_params, clf8._clip_params
+
+
 def tensors(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1470,7 +1922,7 @@ def tensors(tree):
         yield tree
 
 
-# -- 9. times ------------------------------------------------------------------------
+# -- 10. times ------------------------------------------------------------------------
 
 TIME_RUNS = 12
 
@@ -1496,20 +1948,20 @@ def median_ms(torch, fn, runs=TIME_RUNS, warmup=2):
 SPIN_CYCLES = 20_000_000  # ~10 ms of a spinning kernel at the H100's clock
 
 
-def device_ms(torch, fn, runs=TIME_RUNS):
+def device_ms(torch, fn, runs=TIME_RUNS, spin_cycles=SPIN_CYCLES):
     """Median CUDA-event time of one call of ``fn`` enqueued behind a
     spinning kernel (``torch.cuda._sleep``): the host has issued every launch
     of the call before the start event runs, so the host's time to reach the
     launches, which :func:`median_ms` includes (most of it for a kernel
     shorter than its Python wrapper), is hidden and the time is the
-    device's."""
+    device's, as long as the spin outlasts the host's issue time."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin_cycles)
         start.record()
         fn()
         end.record()
@@ -1553,19 +2005,23 @@ def _max_abs_err(out, ref):
     return max(float((o.double() - r.double()).abs().max()) for o, r in zip(outs, refs))
 
 
-def phase_times(torch, np, params, qparams):
+def phase_times(torch, np, params, qparams, vitl):
     """Each kernel at the main path's encode batches: the ViT-B/16 image
-    block at B=256 and the text block at B=1024 (layer 0's weights, and
-    layer 0's int8 layer for K3)."""
+    block at B=256 and the text block at B=1024; and at the toolkit's
+    largest classify bucket, ViT-L/14's image block at B=16 (``vitl``: its
+    bf16 and int8 parameters).  Layer 0's weights, and layer 0's int8 layer
+    for K3."""
     import torch.nn.functional as F
 
     from protoclip_tpu_torch.ops import kernels as K
 
     bf16 = torch.bfloat16
-    shapes = {"image": ("visual", 256, 197, 12, False), "text": ("text", 1024, 77, 8, True)}
+    shapes = {"image": (params, qparams, "visual", 256, 197, 12, False),
+              "text": (params, qparams, "text", 1024, 77, 8, True),
+              "vitl_image": (*vitl, "visual", TOOLKIT_MAX_BATCH, 257, 16, False)}
     results = {}
-    for tag, (tower, b, l, h, causal) in shapes.items():
-        blk, qb = params[tower]["blocks"][0], qparams[tower]["blocks_q"][0]
+    for tag, (tparams, tqparams, tower, b, l, h, causal) in shapes.items():
+        blk, qb = tparams[tower]["blocks"][0], tqparams[tower]["blocks_q"][0]
         d = blk["attn"]["wo"].shape[0]
         dh = d // h
         g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1772,7 +2228,7 @@ def device_ms_by_kind(prof, prefix="rn50_profiled"):
     return out
 
 
-# -- 10. the block-variant bench (S1) -------------------------------------------------------
+# -- 11. the block-variant bench (S1) -------------------------------------------------------
 
 VARIANTS = (
     "v0 v1 v2 v3 v4 v5 v6 v6g8 v7 v9 v2g8 v2g32 v10 "
@@ -2007,6 +2463,25 @@ def phase_variant_times(torch, np):
           lambda: K.attention_int8_plain(*sl, h, length, geom.group),
           lambda: F.scaled_dot_product_attention(*map(heads, sl), attn_mask=keep),
           attn_bytes, {"int8": 4 * b * lp * length * d})
+    # the same core at the bench's ViT-L/14 geometry (B=128, LP=264, length
+    # 257, D=1024, 16 heads), on a seeded QKV buffer
+    gl = bv.geometry({"BENCH_GEOM": "vitl"})
+    dl, hl = gl.width, gl.heads
+    qkv_l = torch.randn(gl.batch, gl.padded, 3 * dl, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED)).to(bf16)
+    sl_l = (qkv_l[..., :dl], qkv_l[..., dl:2 * dl], qkv_l[..., 2 * dl:])
+    keep_l = (torch.arange(gl.padded, device=dev) < gl.length)[None, :]
+
+    def heads_l(t):
+        return t.reshape(gl.batch, gl.padded, hl, dl // hl).transpose(1, 2)
+
+    entry("attention_int8.vit_l14", int8_attention_rule(sl_l[2]),
+          lambda: K.attention_int8(*sl_l, hl, gl.length, gl.group),
+          lambda: K.attention_int8_plain(*sl_l, hl, gl.length, gl.group),
+          lambda: F.scaled_dot_product_attention(*map(heads_l, sl_l), attn_mask=keep_l),
+          4 * gl.batch * gl.padded * dl * 2, {"int8": 4 * gl.batch * gl.padded * gl.length * dl})
+    r["attention_int8.vit_l14"]["geometry"] = [gl.batch, gl.padded, gl.length, dl, hl, gl.group]
+    del qkv_l, sl_l
     entry("qkv_sum", "exact", lambda: K.qkv_sum(qkv), lambda: K.qkv_sum_plain(qkv),
           lambda: qkv.view(m, 3, d).sum(dim=1), m * 4 * d * 2, 2 * m * d)
     with torch.inference_mode():
@@ -2080,7 +2555,7 @@ def phase_variant_times(torch, np):
     return r
 
 
-# -- 11. the contract line ------------------------------------------------------------
+# -- 12. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -2193,12 +2668,13 @@ def main() -> int:
         rn_cfg, rn_setup, counts["runner"], runner_cfg = phase_runner(torch, np, tmp)
         counts["train"] = phase_train(torch, np, tmp, runner_cfg, rn_setup)
         counts["train_qt"] = phase_train_qt(torch, np, tmp)
+        counts["toolkit"], counts["toolkit_int8"], *vitl = phase_toolkit(torch, np, tmp)
     rn_params = rn_setup.clip_params
     del rn_setup
     torch.cuda.empty_cache()
-    times = phase_times(torch, np, params, qparams)
+    times = phase_times(torch, np, params, qparams, vitl)
     phase_encode_times(torch, cfg, params, qparams, rn_cfg, rn_params)
-    del params, qparams, rn_params
+    del params, qparams, rn_params, vitl
     torch.cuda.empty_cache()
     _, counts["variants"] = phase_variants(torch, np)
     vtimes = phase_variant_times(torch, np)

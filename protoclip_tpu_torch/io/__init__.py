@@ -1,5 +1,5 @@
 """File IO of the port: checkpoint triples, torch and reference-pickle
-readers, the MAT reader, and the canonical serving encode
+readers, the MAT reader and writer, and the canonical serving encode
 (:func:`make_encode_fn`).  The exported bundles come with the serving
 slice."""
 
@@ -11,7 +11,7 @@ from protoclip_tpu_torch.io.checkpoint import (
     save_checkpoint_triple,
 )
 from protoclip_tpu_torch.io.export import make_encode_fn
-from protoclip_tpu_torch.io.mat import load_mat
+from protoclip_tpu_torch.io.mat import load_mat, save_mat
 
 __all__ = [
     "checkpoint_paths",
@@ -21,4 +21,5 @@ __all__ = [
     "load_pt",
     "make_encode_fn",
     "save_checkpoint_triple",
+    "save_mat",
 ]

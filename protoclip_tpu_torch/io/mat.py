@@ -1,4 +1,4 @@
-"""Minimal pure-Python MATLAB 5 (``.mat``) reader (a copy of the reader in
+"""Minimal pure-Python MATLAB 5 (``.mat``) reader and writer (a copy of
 ``protoclip_tpu/io/mat.py``; the port keeps its own so that it imports
 nothing of the JAX package).
 
@@ -179,3 +179,54 @@ def mat_1d(value: Any) -> np.ndarray:
 def mat_scalar(value: Any):
     """Extract the scalar from a (1, 1) numeric matrix."""
     return np.asarray(value).reshape(-1)[0]
+
+
+# -- minimal MAT5 writer ------------------------------------------------------
+
+_NP_TO_MX = {
+    np.dtype(np.float64): (6, 9), np.dtype(np.float32): (7, 7),
+    np.dtype(np.int8): (8, 1), np.dtype(np.uint8): (9, 2),
+    np.dtype(np.int16): (10, 3), np.dtype(np.uint16): (11, 4),
+    np.dtype(np.int32): (12, 5), np.dtype(np.uint32): (13, 6),
+    np.dtype(np.int64): (14, 12), np.dtype(np.uint64): (15, 13),
+}
+
+
+def _element(mdtype: int, data: bytes) -> bytes:
+    pad = (-len(data)) % 8
+    return struct.pack("<II", mdtype, len(data)) + data + b"\x00" * pad
+
+
+def _matrix_bytes(name: str, arr: np.ndarray) -> bytes:
+    arr = np.atleast_2d(np.asarray(arr))
+    if arr.dtype == np.bool_:
+        arr = arr.astype(np.uint8)
+    if arr.dtype not in _NP_TO_MX:
+        arr = arr.astype(np.float64)
+    mxclass, mi = _NP_TO_MX[arr.dtype]
+    body = (
+        _element(6, struct.pack("<II", mxclass, 0))  # array flags
+        + _element(5, np.asarray(arr.shape, np.int32).tobytes())  # dims
+        + _element(1, name.encode("latin-1"))  # name
+        + _element(mi, arr.flatten(order="F").tobytes())  # data
+    )
+    return _element(_MI_MATRIX, body)
+
+
+def save_mat(path: str, variables: Dict[str, Any], compress: bool = True) -> None:
+    """Write numeric arrays/scalars as a MATLAB 5 file (the subset the
+    reference's data dumper emits via ``scipy.io.savemat``,
+    ref ``seg_image_listener.py:299-305``)."""
+    header = b"MATLAB 5.0 MAT-file, written by protoclip_tpu_torch.io.mat"
+    header = header + b" " * (116 - len(header))
+    header += b"\x00" * 8 + struct.pack("<H", 0x0100) + b"IM"
+    out = [header]
+    for name, value in variables.items():
+        blob = _matrix_bytes(name, value)
+        if compress:
+            comp = zlib.compress(blob)
+            out.append(struct.pack("<II", _MI_COMPRESSED, len(comp)) + comp)
+        else:
+            out.append(blob)
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out))

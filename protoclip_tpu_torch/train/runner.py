@@ -9,10 +9,9 @@ the reference's ``main()`` + ``run_proto_clip()``, ``main.py:105-552``):
    F-Q^T trainer in ``train/qt_runner.py``), saving the ``_v/_t/_a``
    triple at each best val accuracy and, every ``snapshot_every`` epochs,
    the trainer's state for ``resume``;
-5. test the triple at the config's (alpha, beta) and at re-searched ones.
-
-The JAX runner's post-test t-SNE plot of the prototypes is left out until
-the toolkit slice.
+5. test the triple at the config's (alpha, beta) and at re-searched ones,
+   and plot the trained prototypes' t-SNE where sklearn and matplotlib
+   import.
 """
 
 from __future__ import annotations
@@ -275,6 +274,19 @@ def evaluate_checkpoint(cfg: Config, setup: ExperimentSetup, ckpt_paths_vta, alp
     logger.scalar("Accuracy/test_searched", test_acc_searched, 0)
     _log_sweep_report({"val": val_grid, "test": test_grid, "train": train_grid},
                       alphas, betas, cfg, logger, step=10, phase="test")
+
+    # post-test prototype t-SNE to TensorBoard (ref main.py:457-458,
+    # utils.py:125-164); a host plot, skipped where its libraries are absent
+    try:
+        from protoclip_tpu_torch.toolkit.tsne import plot_prototype_tsne
+
+        plot_prototype_tsne(
+            img_p.cpu().numpy(), txt_p.cpu().numpy(), setup.dataset.classnames,
+            os.path.join(logger.log_dir, f"tsne_prototypes_{cfg.dataset}.png"),
+            logger=logger, tag="t-SNE/prototypes",
+        )
+    except ImportError:
+        pass
     if progress:
         print(f"[test] fixed(a={alpha}, b={beta}): {test_acc_fixed*100:.2f}% | "
               f"searched(a={a_s}, b={b_s}): {test_acc_searched*100:.2f}%")

@@ -627,3 +627,56 @@ def _tensors(tree):
             yield from _tensors(v)
     else:
         yield tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_classifier_matches_cpu(cuda_device, dtype, tmp_path, monkeypatch):
+    """One ``ProtoClipClassifier.infer_canvases`` call on the card (a small
+    ViT, 2 layers at width 64, random weights from seed 0) against the same
+    call on the CPU in fp32: K2 launched once a layer; feature row cosine >=
+    0.99999 (fp32) / 0.999 (bf16); in fp32 ids equal and top-k probabilities
+    within 1e-5, in bf16 every class probability within 1e-2; and the CPU's
+    top-k on the card's own features within 1e-5, with equal ids."""
+    from protoclip_tpu_torch.core.config import Config
+    from protoclip_tpu_torch.io.checkpoint import save_checkpoint_triple
+    from protoclip_tpu_torch.models import clip
+    from protoclip_tpu_torch.models.adapters import adapter_to_torch_state, init_adapter
+    from protoclip_tpu_torch.toolkit import ProtoClipClassifier
+
+    cfg = clip.CLIPConfig("tiny-vit", embed_dim=64, image_resolution=32, vision_layers=2,
+                          vision_width=64, vision_patch_size=16, context_length=16,
+                          vocab_size=128, transformer_width=64, transformer_layers=1)
+    monkeypatch.setitem(clip.BACKBONE_CONFIGS, "tiny-vit", cfg)
+    rng = np.random.default_rng(0)
+    n_class, shots = 6, 2
+    paths = [str(tmp_path / f"{s}.pt") for s in ("v", "t", "a")]
+    save_checkpoint_triple(*paths, rng.standard_normal((n_class * shots, 64)),
+                           rng.standard_normal((n_class, 64)),
+                           adapter_to_torch_state(init_adapter(torch.Generator().manual_seed(0),
+                                                               64, "fc"), "fc"))
+    mapping = {i: f"class_{i}" for i in range(n_class)}
+    kw = dict(memory_bank_v_path=paths[0], memory_bank_t_path=paths[1],
+              adapter_weights_path=paths[2], class_id_mapping=mapping, max_batch=8,
+              batch_buckets=(1, 4))
+    args = dict(backbone="tiny-vit", shots=shots, alpha=0.5, beta=5.0, top_k=3)
+    card = ProtoClipClassifier(Config(**args, compute_dtype=dtype), device=cuda_device, **kw)
+    cpu = ProtoClipClassifier(Config(**args, compute_dtype="float32"), device="cpu", **kw)
+    canvases = np.random.default_rng(1).integers(0, 256, (3, 32, 32, 3), dtype=np.uint8)
+    kernels.reset_launch_counts()
+    probs, ids = card.infer_canvases(canvases)
+    assert kernels.launch_counts()["fused_transformer_block"] == cfg.vision_layers
+    feats = card._encode(torch.from_numpy(canvases).to(cuda_device)).cpu()
+    want = cpu._encode(torch.from_numpy(canvases))
+    cos = torch.nn.functional.cosine_similarity(feats, want, dim=-1)
+    assert float(cos.min()) >= (0.99999 if dtype == "float32" else 0.999)
+    if dtype == "float32":
+        want_p, want_i = cpu.infer_canvases(canvases)
+        np.testing.assert_array_equal(ids, want_i)
+        np.testing.assert_allclose(probs, want_p, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(cpu.model.probs(feats, 0.5, 5.0).numpy(),
+                                   cpu.model.probs(want, 0.5, 5.0).numpy(), atol=1e-2, rtol=0)
+    cpu_p, cpu_i = cpu._top_k(feats)
+    np.testing.assert_array_equal(cpu_i.numpy(), ids)
+    np.testing.assert_allclose(cpu_p.numpy(), probs, atol=1e-5, rtol=0)

@@ -47,7 +47,11 @@ def test_port_has_files():
                    "data/loader.py", "core/config.py", "obs/logging.py", "obs/plots.py",
                    "train/runner.py", "cli/main.py", "ops/losses.py", "train/optim.py",
                    "train/episodic.py", "train/resume.py", "train/qt.py",
-                   "train/qt_runner.py", "data/query.py"):
+                   "train/qt_runner.py", "data/query.py", "__main__.py",
+                   "toolkit/__init__.py", "toolkit/classifier.py", "toolkit/ood.py",
+                   "toolkit/tsne.py", "toolkit/robot.py", "toolkit/paper_figures.py",
+                   "toolkit/speech.py", "toolkit/ros_utils.py", "toolkit/ros_nodes.py",
+                   "cli/ood.py", "cli/tsne.py", "cli/transcribe.py", "cli/ros_node.py"):
         assert "protoclip_tpu_torch/" + module in rel, module
 
 
@@ -81,3 +85,14 @@ def test_importing_the_port_loads_no_jax():
     n_modules, bad = out.split(" ", 1)
     assert bad == "[]", bad
     assert int(n_modules) > 20
+
+
+def test_python_m_package_runs_the_cli():
+    """``python -m protoclip_tpu_torch`` is the runner's CLI (``cli/main.py``)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-m", "protoclip_tpu_torch", "--help"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "--only_test" in out.stdout and "--device" in out.stdout
