@@ -71,14 +71,33 @@ Phases, one JSON line each on stdout:
              ``toolkit.test_ood_performance`` on an imagenet_v2-layout tree,
              its accuracy against the CPU's, then from its cache with no
              launch.
-10. times  - each kernel (CUDA events around one call, and its device
+10. serve  - serving through its entry points: ViT-B/16 bundles written by
+             ``cli.export`` (batch 256, buckets 8 and 64; bf16 and W8A8),
+             loaded with one CUDA graph per bucket; each replay held
+             against the eager encode of its bucket (bit for bit, bar
+             1e-5), each bucket's rows against the full batch's (bf16 1e-5;
+             int8 1e-2, row cosine 0.9995) and the features against the
+             fp32 CPU encode; replay against eager ms per bucket; then
+             ``cli.serve.build_server`` over the bf16 bundle and the
+             toolkit phase's ViT-L/14 classifier, driven by
+             ``client.ServeClient`` threads in a process of their own
+             (``chip_smoke.py --loadgen``) at concurrency 1, 8 and 32 with
+             seeded 480 x 640 JPEGs, each for a window of >= 4 s and >= 200
+             requests (requests/s, images/s, p50/p99, the client's own
+             base64/JSON ms apart, fill, both processes' CPU cores), the
+             served answers held against direct calls, the protocol's
+             errors, and the serve CLI in a subprocess (SIGTERM, exit 0).
+             The host preprocess runs natively ($PROTOCLIP_NATIVE=1); its
+             decode + preprocess ms is also timed through PIL on the same
+             JPEGs (and on the toolkit phase's crops).
+11. times  - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
              (images B=256, prompts B=1024) and at the classifier's ViT-L/14
              image block (B=16), and the encode rates in bf16 (K2) and int8
              (K3), and RN50's image encode in bf16.
-11. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+12. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over every variant at the full
              ViT-B/16 geometry (B=512, LP=200, 12 layers) and four at
@@ -89,9 +108,10 @@ Phases, one JSON line each on stdout:
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times), the int8 attention core
              also at ViT-L/14's (B=128, LP=264).
-12. kernels - the contract line: every ported kernel with the path or phase
-             that launched it, its launches (by path, the runner's and the
-             trainers' too), error, times and bound.
+13. kernels - the contract line: every ported kernel with the path or phase
+             that launched it, its launches (by path, the runner's, the
+             trainers' and the server's too, and per replay of each serving
+             bucket's CUDA graph), error, times and bound.
 
 The bf16 paths of the two kernels that carry the blocks run on the tensor
 cores: ``attention_packed.cu`` as mma.sync m16n8k16 (Q, K, V through
@@ -1643,7 +1663,7 @@ def phase_toolkit(torch, np, tmp):
       FeatureCache, which must launch nothing.
 
     Returns (the robot path's launches in bf16, in int8, the bf16 and the
-    int8 CLIP parameters)."""
+    int8 CLIP parameters, the bf16 classifier)."""
     from PIL import Image
 
     from protoclip_tpu_torch.core import accuracy, from_arrays, load_config
@@ -1705,18 +1725,28 @@ def phase_toolkit(torch, np, tmp):
         require(len(os.listdir(log_dir)) == 1, "classify_objects wrote no .npy log")
         require(probs.shape == (len(crops), cfg.top_k) and np.isfinite(probs).all()
                 and (np.diff(probs, axis=1) <= 0).all(), f"top-k probabilities {probs.shape}")
-        pre = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            clf._preprocess_crops(crops)
-            pre.append((time.perf_counter() - t0) * 1e3 / len(crops))
+        # the crops' preprocess through the native resize and through PIL
+        # in turns
+        pre, canvases = {"native": [], "PIL": []}, {}
+        try:
+            for _ in range(5):
+                for path, gate in (("native", "1"), ("PIL", "0")):
+                    os.environ["PROTOCLIP_NATIVE"] = gate
+                    t0 = time.perf_counter()
+                    canvases[path] = clf._preprocess_crops(crops)
+                    pre[path].append((time.perf_counter() - t0) * 1e3 / len(crops))
+        finally:
+            os.environ["PROTOCLIP_NATIVE"] = "1"
+        require(np.array_equal(canvases["native"], canvases["PIL"]),
+                "the native preprocess differs from PIL's on the crops")
         return crops, counts, {
             "crops": len(crops), "masks": int(label.max()), "mask_ids_kept": mask_ids,
             "classify_objects_ms": classify_ms, "launches": {k: v for k, v in counts.items() if v},
             "noun": noun, "selected_crop": chosen[0], "selected_mask_id": mask_ids[chosen[0]],
             "selected_prob": chosen[1], "crops_predicting_noun": int(np.isfinite(at_noun).sum()),
             "top1": [row[0] for row in names], "boxes_3d": len(boxes),
-            "preprocess_ms_per_crop": sorted(pre)[2]}
+            "crop_hw": [list(c.shape[:2]) for c in crops],
+            **{f"preprocess_ms_per_crop_{path}": sorted(ms)[2] for path, ms in pre.items()}}
 
     failures = []
 
@@ -1908,7 +1938,549 @@ def phase_toolkit(torch, np, tmp):
           "ood": {**ood, "images": n_ood, "classes": OOD_CLASSES},
           "failures": failures, "seconds": time.perf_counter() - t_phase})
     require(not failures, f"toolkit checks failed: {failures}")
-    return counts, counts8, clf._clip_params, clf8._clip_params
+    return counts, counts8, clf._clip_params, clf8._clip_params, clf
+
+
+# -- 10. serve ------------------------------------------------------------------------
+
+SERVE_BACKBONE = "ViT-B/16"
+SERVE_BATCH, SERVE_BUCKETS = 256, (8, 64)
+SERVE_CONCURRENCY = (1, 8, 32)
+# each route and concurrency: a window of at least SERVE_WINDOW_S seconds and
+# SERVE_MIN_SAMPLES requests ended in it, after SERVE_WARMUP_S of traffic
+SERVE_WARMUP_S, SERVE_WINDOW_S, SERVE_MAX_WINDOW_S = 0.5, 4.0, 20.0
+SERVE_MIN_SAMPLES = 200
+SERVE_LOADGEN_TIMEOUT_S = 300
+SERVE_JPEGS = 24  # distinct 480 x 640 JPEGs the requests draw from
+SERVE_CPU_IMAGES = 8
+# the JAX bundle bars (commit aa2a6a6): bucket rows against the full batch's
+SERVE_BUCKET_BARS = {"bf16": (1e-5, None), "int8": (1e-2, 0.9995)}
+SERVE_CPU_COSINE = {"bf16": 0.999, "int8": 0.995}
+SERVE_CLI_TIMEOUT_S = 240
+
+
+def serve_jpegs(np):
+    """SERVE_JPEGS seeded synthetic camera frames (480 x 640, a colour field
+    with noise and a few boxes), JPEG-encoded at quality 90."""
+    import io
+
+    from PIL import Image
+
+    np_rng = np.random.default_rng(SEED)
+    h, w = FRAME_HW
+    out = []
+    for _ in range(SERVE_JPEGS):
+        pixels = np_rng.integers(0, 200, 3) + np_rng.integers(0, 56, (h, w, 3))
+        for _ in range(3):
+            top, left = np_rng.integers(0, h - 120), np_rng.integers(0, w - 160)
+            pixels[top:top + 120, left:left + 160] = np_rng.integers(0, 256, 3)
+        buf = io.BytesIO()
+        Image.fromarray(pixels.astype(np.uint8)).save(buf, "JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def bucket_times(torch, np, enc, eager, images):
+    """Each bucket of a loaded bundle against the eager encode of the same
+    bucket: CUDA-event ms and device ms (:func:`device_ms`) of one replay
+    and of one eager call on the bucket's input buffer, the host's time to
+    issue each, and the host wall ms of one whole bundle call (rows up,
+    replay, rows back) against the same done eagerly."""
+    out = {}
+    for size, art in sorted(enc.artifacts.items()):
+        block = images[:size]
+        enc(block)
+        replay = art.graph.replay
+
+        def eager_call():
+            return eager(enc.params, art.input)
+
+        def eager_whole():
+            return eager(enc.params, torch.from_numpy(block).cuda()).cpu().numpy()
+
+        def issue(fn):
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            return sorted(walls)[2]
+
+        def wall(fn):
+            fn()
+            walls = []
+            for _ in range(TIME_RUNS):
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return sorted(walls)[len(walls) // 2]
+
+        row = {"replay_ms": median_ms(torch, replay), "replay_device_ms": device_ms(torch, replay),
+               "replay_issue_ms": issue(replay),
+               "eager_ms": median_ms(torch, eager_call),
+               "eager_device_ms": device_ms(torch, eager_call),
+               "eager_issue_ms": issue(eager_call),
+               "call_wall_ms": wall(lambda: enc(block)), "eager_call_wall_ms": wall(eager_whole)}
+        row["images_per_s"] = size / row["call_wall_ms"] * 1e3
+        row["eager_images_per_s"] = size / row["eager_call_wall_ms"] * 1e3
+        out[str(size)] = row
+    return out
+
+
+def hold_bundle(torch, np, enc, mode, images, cpu_ref):
+    """A loaded bundle's buckets: every bucket a CUDA graph with the block
+    launched once a layer per replay; each replay against the eager encode
+    of the same bucket (bit for bit, bar 1e-5); each bucket's rows, full
+    and padded, against the largest bucket's (SERVE_BUCKET_BARS); the
+    features of SERVE_CPU_IMAGES images against the fp32 CPU encode."""
+    from protoclip_tpu_torch.io import make_encode_fn
+
+    layers = enc.cfg.vision_layers
+    block = "fused_transformer_block_int8" if mode == "int8" else "fused_transformer_block"
+    eager = make_encode_fn(enc.cfg, normalize=True, int8=mode == "int8")
+
+    full = enc(images)
+    held = {"per_replay": {}, "warmup": {}, "replay_vs_eager_max_abs_diff": {},
+            "bucket_vs_full": {}}
+    for size, art in sorted(enc.artifacts.items()):
+        require(art.graph is not None, f"{mode} bucket {size} is not a CUDA graph")
+        held["per_replay"][str(size)] = art.launches_per_replay
+        held["warmup"][str(size)] = art.warmup_launches
+        require(art.launches_per_replay.get(block) == layers
+                and not any(k.startswith("fused_transformer_block") and k != block
+                            for k in art.launches_per_replay),
+                f"{mode} bucket {size} captured {art.launches_per_replay}, expected {block} "
+                f"x {layers}")
+        replayed = art(images[:size])
+        eager_out = eager(enc.params, art.input).cpu().numpy()
+        diff = float(np.abs(replayed - eager_out).max())
+        held["replay_vs_eager_max_abs_diff"][str(size)] = diff
+        held.setdefault("replay_bit_identical", {})[str(size)] = bool(
+            np.array_equal(replayed, eager_out))
+        require(diff <= 1e-5, f"{mode} bucket {size}: replay vs eager {diff} > 1e-5")
+        for n in (size, size - 3):
+            rows = enc(images[:n])
+            bar, min_cos = SERVE_BUCKET_BARS[mode]
+            d = float(np.abs(rows - full[:n]).max())
+            cos = float((torch.nn.functional.cosine_similarity(
+                torch.from_numpy(rows), torch.from_numpy(full[:n]), dim=-1)).min())
+            held["bucket_vs_full"][str(n)] = {"bucket": size, "max_abs_diff": d,
+                                              "row_cos_min": cos,
+                                              "bit_identical": bool(np.array_equal(rows, full[:n]))}
+            require(d <= bar and (min_cos is None or cos >= min_cos),
+                    f"{mode}: {n} rows in bucket {size} off the full batch: {d}, cos {cos}")
+    cos = row_cosines(torch, torch.from_numpy(full[:SERVE_CPU_IMAGES]), cpu_ref)
+    held["cos_vs_cpu_fp32"] = cos.tolist()
+    require(float(cos.min()) >= SERVE_CPU_COSINE[mode],
+            f"{mode} bundle vs the fp32 CPU encode: cosine {cos.tolist()}")
+    return held, eager
+
+
+def _proc_cpu_s(pid):
+    """User + system CPU seconds of process ``pid`` so far (Linux /proc)."""
+    with open(f"/proc/{pid}/stat") as fh:
+        fields = fh.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def loadgen_cell(np, url, route, jpegs, concurrency, server_pid):
+    """One route at one concurrency: ``concurrency`` client threads, each a
+    ``ServeClient`` sending requests of 1-4 of the seeded JPEGs back to back
+    until told to stop.  After SERVE_WARMUP_S a window opens; it closes once
+    it has lasted SERVE_WINDOW_S and SERVE_MIN_SAMPLES requests ended inside
+    it (at most SERVE_MAX_WINDOW_S).  Over the requests that ended in the
+    window: requests/s, images/s, p50/p99 latency, and the client's own share
+    of each request (base64 + ``json.dumps`` of the body; ``json.loads`` of
+    the answer and its array) apart from the rest (the wire and the server);
+    the server's dispatches and fill from ``/statz`` at the window's ends;
+    the CPU cores the server process and this one used in the window."""
+    import threading
+    import urllib.request
+
+    from protoclip_tpu_torch.client import ServeClient, _to_b64
+
+    class TimedClient(ServeClient):
+        """``ServeClient._post`` with the client's own work timed apart."""
+
+        def _post(self, path, images):
+            t0 = time.perf_counter()
+            body = json.dumps({"images": [_to_b64(im) for im in images]}).encode()
+            t1 = time.perf_counter()
+            req = urllib.request.Request(self.base_url + path, data=body,
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+                raw = resp.read()
+            t2 = time.perf_counter()
+            out = json.loads(raw)
+            self.last = (t1 - t0, time.perf_counter() - t2)
+            return out
+
+    done, errors, lock, stop = [], [], threading.Lock(), threading.Event()
+
+    def worker(k):
+        np_rng = np.random.default_rng([SEED, concurrency, k])
+        client = TimedClient(url, timeout=120.0)
+        call = client.encode if route == "/encode" else client.classify
+        while not stop.is_set():
+            req = [jpegs[i] for i in np_rng.choice(len(jpegs), int(np_rng.integers(1, 5)))]
+            t0 = time.perf_counter()
+            try:
+                call(req)
+            except Exception as exc:  # noqa: BLE001 - counted and raised by the caller
+                with lock:
+                    errors.append(f"{type(exc).__name__}: {exc}")
+                continue
+            t1 = time.perf_counter()
+            with lock:
+                done.append((t0, t1, len(req), *client.last))
+            client.last = (0.0, 0.0)
+
+    statz = ServeClient(url, timeout=60.0)
+    threads = [threading.Thread(target=worker, args=(k,), daemon=True)
+               for k in range(concurrency)]
+    for t in threads:
+        t.start()
+    time.sleep(SERVE_WARMUP_S)
+    before = statz.statz()[route]
+    cpu0 = (_proc_cpu_s(server_pid), sum(os.times()[:2]))
+    t_open = time.perf_counter()
+    while True:
+        time.sleep(0.05)
+        now = time.perf_counter()
+        with lock:
+            n = sum(1 for r in done if r[1] >= t_open)
+        if (now - t_open >= SERVE_WINDOW_S and n >= SERVE_MIN_SAMPLES) \
+                or now - t_open >= SERVE_MAX_WINDOW_S or errors:
+            break
+    t_close = time.perf_counter()
+    cpu1 = (_proc_cpu_s(server_pid), sum(os.times()[:2]))
+    after = statz.statz()[route]
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    window = t_close - t_open
+    rows = [r for r in done if t_open <= r[1] <= t_close]
+    lat = sorted((r[1] - r[0]) * 1e3 for r in rows)
+    enc = sorted(r[3] * 1e3 for r in rows)
+    dec = sorted(r[4] * 1e3 for r in rows)
+    rest = sorted((r[1] - r[0] - r[3] - r[4]) * 1e3 for r in rows)
+
+    def q(v, p):
+        return v[min(len(v) - 1, int(len(v) * p))] if v else None
+
+    dispatches = after["dispatches"] - before["dispatches"]
+    return {"samples": len(rows), "window_s": window, "errors": errors[:3],
+            "stuck_clients": sum(t.is_alive() for t in threads),
+            "images": sum(r[2] for r in rows),
+            "requests_per_s": len(rows) / window, "images_per_s": sum(r[2] for r in rows) / window,
+            "p50_ms": q(lat, 0.5), "p99_ms": q(lat, 0.99),
+            "client_encode_ms_p50": q(enc, 0.5), "client_decode_ms_p50": q(dec, 0.5),
+            "wire_and_server_ms_p50": q(rest, 0.5), "wire_and_server_ms_p99": q(rest, 0.99),
+            "dispatches": dispatches,
+            "mean_fill": (after["images"] - before["images"]) / max(dispatches, 1),
+            "dispatches_per_s": dispatches / window,
+            "dispatch_ms_p50": after.get("dispatch_ms_p50"),
+            "dispatch_ms_p99": after.get("dispatch_ms_p99"),
+            "server_cpu_cores": (cpu1[0] - cpu0[0]) / window,
+            "loadgen_cpu_cores": (cpu1[1] - cpu0[1]) / window}
+
+
+def loadgen_main(argv) -> int:
+    """``chip_smoke.py --loadgen URL SERVER_PID``: the serve phase's clients,
+    in a process of their own so that they share no interpreter lock with
+    the server.  Drives every route at every concurrency of
+    SERVE_CONCURRENCY (:func:`loadgen_cell`) and prints one JSON object."""
+    import numpy as np
+
+    url, server_pid = argv[0], int(argv[1])
+    jpegs = serve_jpegs(np)
+    out = {f"{route}@{conc}": loadgen_cell(np, url, route, jpegs, conc, server_pid)
+           for route in ("/encode", "/classify") for conc in SERVE_CONCURRENCY}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def phase_serve(torch, np, tmp, clf):
+    """Serving through its entry points, on the card at full width (random
+    weights, seed 0): ViT-B/16 bundles written by ``cli.export.main``
+    (batch 256, buckets 8 and 64) in bf16 and W8A8, loaded with one CUDA
+    graph per bucket and held (:func:`hold_bundle`) and timed against the
+    eager encode (:func:`bucket_times`); then ``cli.serve.build_server``
+    over the bf16 bundle and the ``toolkit`` phase's ViT-L/14 FewSOL-198
+    classifier, driven by ``client.ServeClient`` threads in a process of
+    their own (:func:`loadgen_main`) at concurrency 1, 8 and 32 with seeded
+    480 x 640 JPEGs (1-4 a request); decode + preprocess ms, native and
+    PIL, and the JSON encode ms; the served answers held against direct
+    calls; the protocol's errors; and the serve CLI in a subprocess
+    (``/healthz``, one ``/encode``, SIGTERM).
+
+    Returns (the launch counts of the server's start, of its traffic, and
+    {"per_replay": each bundle's launches per replay by bucket,
+    "per_classify_call": the traffic's launches per /classify dispatch})."""
+    import base64
+    import io
+    import re
+    import signal
+    import socket
+    import threading
+
+    from PIL import Image
+
+    from protoclip_tpu_torch import native
+    from protoclip_tpu_torch.cli.export import main as export_main
+    from protoclip_tpu_torch.cli.serve import _preprocess_block, build_server
+    from protoclip_tpu_torch.client import ServeClient, ServeError
+    from protoclip_tpu_torch.data import clip_preprocess, normalize_batch
+    from protoclip_tpu_torch.io import load_serving_bundle
+    from protoclip_tpu_torch.models.clip import cast_params, encode_image, to_device
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.ops.proto import l2_normalize
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "serve")
+    preprocess_path = "native" if native.load() is not None else "PIL"
+    n_px = 224
+    images = np.random.default_rng(SEED).integers(0, 256, (SERVE_BATCH, n_px, n_px, 3),
+                                                  dtype=np.uint8)
+    dirs, export_s, load_s, encs = {}, {}, {}, {}
+    for mode in ("bf16", "int8"):
+        dirs[mode] = os.path.join(root, f"vit_b16_{mode}")
+        t0 = time.perf_counter()
+        export_main(["--backbone", SERVE_BACKBONE, "--out", dirs[mode], "--batch",
+                     str(SERVE_BATCH), "--buckets", *map(str, SERVE_BUCKETS)]
+                    + (["--int8"] if mode == "int8" else []))
+        export_s[mode] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        encs[mode] = load_serving_bundle(dirs[mode])
+        torch.cuda.synchronize()
+        load_s[mode] = time.perf_counter() - t0
+    bundle_mb = sum(os.path.getsize(os.path.join(dirs["bf16"], f))
+                    for f in os.listdir(dirs["bf16"])) / 2**20
+
+    # one fp32 CPU reference: both exports drew the same weights from seed 0
+    vis = {m: [t for t in tensors(e.params["visual"]["blocks"])] for m, e in encs.items()}
+    require(all(torch.equal(a, b) for a, b in zip(vis["bf16"], vis["int8"])),
+            "the bf16 and int8 bundles hold different weights")
+    del vis
+    cfg = encs["bf16"].cfg
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu32 = cast_params(to_device({"visual": encs["bf16"].params["visual"]},
+                                      torch.device("cpu")), torch.float32)
+        x = torch.from_numpy(images[:SERVE_CPU_IMAGES])
+        cpu_ref = l2_normalize(encode_image(cpu32, normalize_batch(x, torch.float32),
+                                            cfg).float())
+    cpu_s = time.perf_counter() - t0
+    del cpu32
+    held, times = {}, {}
+    for mode, enc in encs.items():
+        held[mode], eager = hold_bundle(torch, np, enc, mode, images, cpu_ref)
+        times[mode] = bucket_times(torch, np, enc, eager, images)
+    per_replay = {mode: {size: art.launches_per_replay for size, art in enc.artifacts.items()}
+                  for mode, enc in encs.items()}
+    del encs
+    torch.cuda.empty_cache()
+
+    # the server in this process: /encode over the bf16 bundle, /classify
+    # over the toolkit phase's classifier
+    jpegs = serve_jpegs(np)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = build_server(port=0, bundle=dirs["bf16"], classifier=clf, quiet=True)
+    torch.cuda.synchronize()
+    start_s = time.perf_counter() - t0
+    start_counts = K.launch_counts()
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    client = ServeClient(url, timeout=120.0)
+    routes = srv.RequestHandlerClass.routes
+    encode_route = routes["/encode"]
+    failures = []
+
+    def check(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    try:
+        # the clients in a process of their own (loadgen_main)
+        K.reset_launch_counts()
+        before = client.statz()["/classify"]["dispatches"]
+        t0 = time.perf_counter()
+        gen = subprocess.run([sys.executable, os.path.abspath(__file__), "--loadgen", url,
+                              str(os.getpid())], capture_output=True, text=True,
+                             timeout=SERVE_LOADGEN_TIMEOUT_S)
+        traffic_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        traffic_counts = K.launch_counts()
+        classify_dispatches = client.statz()["/classify"]["dispatches"] - before
+        require(gen.returncode == 0, f"the load generator exited {gen.returncode}: "
+                                     f"{gen.stderr[-2000:]}")
+        traffic = json.loads(gen.stdout.strip().splitlines()[-1])
+        for cell, row in traffic.items():
+            check(not row["errors"] and not row["stuck_clients"]
+                  and row["samples"] >= SERVE_MIN_SAMPLES,
+                  f"{cell}: {row['samples']} requests in the window, errors {row['errors']}, "
+                  f"{row['stuck_clients']} clients stuck")
+        layers_l = clf.clip_cfg.vision_layers
+        check(traffic_counts["fused_transformer_block"] == layers_l * classify_dispatches,
+              f"serving launched {traffic_counts['fused_transformer_block']} K2 blocks for "
+              f"{classify_dispatches} classify dispatches of {layers_l} layers "
+              f"(the /encode replays launch none of their own)")
+
+        # host work apart from the dispatch: decode + preprocess, JSON
+        def b64(req):
+            return {"images": [base64.b64encode(j).decode() for j in req]}
+
+        # decode + preprocess an image, on the route's pool (a request of 4)
+        # and on one thread, through the native resize and through PIL in
+        # turns on the same JPEGs
+        payload = b64(jpegs[:4])
+        pre = {"native": ([], []), "PIL": ([], [])}
+        blocks = {}
+        try:
+            for _ in range(3):
+                for path, gate in (("native", "1"), ("PIL", "0")):
+                    os.environ["PROTOCLIP_NATIVE"] = gate
+                    pool_ms, one_ms = pre[path]
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        blocks[path] = _preprocess_block(payload, n_px, encode_route.pool, False)
+                        pool_ms.append((time.perf_counter() - t0) * 1e3 / 4)
+                    for j in jpegs[:8]:
+                        t0 = time.perf_counter()
+                        clip_preprocess(Image.open(io.BytesIO(j)).convert("RGB"), n_px)
+                        one_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            os.environ["PROTOCLIP_NATIVE"] = "1"
+        check(np.array_equal(blocks["native"], blocks["PIL"]),
+              "the native preprocess differs from PIL's on the serve JPEGs")
+        block = blocks["native"]
+        json_ms = {}
+        for n in (4, SERVE_BATCH):
+            feats = encode_route.encode(images[:n])
+            tl, dump = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                listed = feats.tolist()
+                t1 = time.perf_counter()
+                json.dumps({"features": listed}).encode()
+                tl.append((t1 - t0) * 1e3)
+                dump.append((time.perf_counter() - t1) * 1e3)
+            json_ms[str(n)] = {"tolist_ms": sorted(tl)[2], "dumps_ms": sorted(dump)[2]}
+        host = {"preprocess_path": preprocess_path, "encode_json_ms": json_ms}
+        for path, (pool_ms, one_ms) in pre.items():
+            host[f"decode_preprocess_ms_per_image_pool_{path}"] = sorted(pool_ms)[len(pool_ms) // 2]
+            host[f"decode_preprocess_ms_per_image_one_thread_{path}"] = \
+                sorted(one_ms)[len(one_ms) // 2]
+
+        # the served answers against direct calls on the server's own
+        # preprocess of the same bytes
+        served = client.encode(jpegs[:4])
+        direct = encode_route.encode(block)
+        check(np.array_equal(served, direct), "a lone /encode request's rows differ from the "
+                                              "direct bundle call")
+        # 16 concurrent requests, coalesced: each must get exactly the rows
+        # a direct call of its own block gives
+        reqs = [[jpegs[(3 * i + k) % len(jpegs)] for k in range(1 + i % 4)] for i in range(16)]
+        outs = [None] * len(reqs)
+
+        def post(i):
+            outs[i] = ServeClient(url, timeout=120.0).encode(reqs[i])
+
+        before = client.statz()["/encode"]
+        threads = [threading.Thread(target=post, args=(i,), daemon=True) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        after = client.statz()["/encode"]
+        coalesced = {"requests": len(reqs), "rows": sum(map(len, reqs)),
+                     "dispatches": after["dispatches"] - before["dispatches"]}
+        coalesced["differ"] = sum(
+            not np.array_equal(out, encode_route.encode(
+                _preprocess_block(b64(req), n_px, encode_route.pool, False)))
+            for req, out in zip(reqs, outs))
+        check(coalesced["differ"] == 0, f"coalesced /encode requests differ from direct calls: "
+                                        f"{coalesced}")
+        crops = [np.asarray(Image.open(io.BytesIO(j)).convert("RGB")) for j in jpegs[4:8]]
+        names, probs = client.classify(jpegs[4:8])
+        want_names, want_probs = clf.classify_objects(crops)
+        classify_diff = float(np.abs(probs - want_probs).max())
+        check(names == want_names and classify_diff <= 1e-6,
+              f"/classify differs from classify_objects: {classify_diff}")
+        health = client.healthz()
+        statz = client.statz()
+        metrics = client.metrics()
+        sample = re.compile(r'^[a-z_]+(\{[a-z]+="[^"]*"(,[a-z]+="[^"]*")*\})? [-0-9.e+]+$')
+        check(health["status"] == "ok" and set(statz) == {"/encode", "/classify"}
+              and all(sample.match(line) for line in metrics.strip().split("\n")
+                      if not line.startswith("#")), "healthz/statz/metrics do not parse")
+        codes = {}
+        for name, call in (("bad_payload", lambda: client.encode([b"junk"])),
+                           ("unknown_route", lambda: client._post("/nope", jpegs[:1]))):
+            try:
+                call()
+                codes[name] = 200
+            except ServeError as err:
+                codes[name] = err.status
+        check(codes == {"bad_payload": 400, "unknown_route": 404}, f"error codes {codes}")
+        served_checks = {"lone_encode_bit_identical": bool(np.array_equal(served, direct)),
+                         "coalesced": coalesced,
+                         "classify_names_equal": names == want_names,
+                         "classify_max_abs_diff": classify_diff, "error_codes": codes,
+                         "healthz": health["status"]}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+
+    # the serve CLI in a subprocess: /healthz, one /encode, exit 0 on SIGTERM
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "protoclip_tpu_torch.cli.serve", "--bundle",
+                             dirs["bf16"], "--port", str(port)], stderr=subprocess.PIPE,
+                            text=True)
+    cli = {}
+    try:
+        cli_client = ServeClient(f"http://127.0.0.1:{port}", timeout=60.0)
+        deadline = time.monotonic() + SERVE_CLI_TIMEOUT_S
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                cli["healthz"] = cli_client.healthz()["status"]
+                break
+            except OSError:
+                time.sleep(0.5)
+        cli["ready_s"] = time.perf_counter() - t0
+        cli["encode_rows"] = len(cli_client.encode(jpegs[:2])) if "healthz" in cli else 0
+        proc.send_signal(signal.SIGTERM)
+        cli["exit_code"] = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    stderr_tail = proc.stderr.read()[-2000:]
+    check(cli.get("healthz") == "ok" and cli.get("encode_rows") == 2
+          and cli.get("exit_code") == 0, f"the serve CLI: {cli}; stderr: {stderr_tail}")
+
+    emit({"phase": "serve", "backbone": SERVE_BACKBONE, "weights": "random, seed 0",
+          "batch": SERVE_BATCH, "buckets": sorted({*SERVE_BUCKETS, SERVE_BATCH}),
+          "bundle_mb": bundle_mb, "export_s": export_s, "load_s": load_s, "cpu_fp32_s": cpu_s,
+          "held": held, "bucket_times": times, "server_start_s": start_s,
+          "server_start_launches": {k: v for k, v in start_counts.items() if v},
+          "traffic": traffic, "traffic_s": traffic_s, "traffic_launches": {k: v for k, v in traffic_counts.items() if v},
+          "classify_backbone": clf.clip_cfg.name, "classify_buckets": clf.batch_buckets,
+          "host": host, "served": served_checks, "cli": cli, "failures": failures,
+          "seconds": time.perf_counter() - t_phase})
+    require(not failures, f"serve checks failed: {failures}")
+    per_call = {k: v / max(classify_dispatches, 1) for k, v in traffic_counts.items() if v}
+    return start_counts, traffic_counts, {"per_replay": per_replay, "per_classify_call": per_call}
 
 
 def tensors(tree):
@@ -1922,7 +2494,7 @@ def tensors(tree):
         yield tree
 
 
-# -- 10. times ------------------------------------------------------------------------
+# -- 11. times ------------------------------------------------------------------------
 
 TIME_RUNS = 12
 
@@ -2228,7 +2800,7 @@ def device_ms_by_kind(prof, prefix="rn50_profiled"):
     return out
 
 
-# -- 11. the block-variant bench (S1) -------------------------------------------------------
+# -- 12. the block-variant bench (S1) -------------------------------------------------------
 
 VARIANTS = (
     "v0 v1 v2 v3 v4 v5 v6 v6g8 v7 v9 v2g8 v2g32 v10 "
@@ -2555,7 +3127,7 @@ def phase_variant_times(torch, np):
     return r
 
 
-# -- 12. the contract line ------------------------------------------------------------
+# -- 13. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -2608,7 +3180,7 @@ KERNEL_SOURCES.update({  # the block-variant bench (S1): its modes, its kernels,
 })
 
 
-def phase_kernels(counts, times, vtimes):
+def phase_kernels(counts, times, vtimes, serve):
     """One entry per ported kernel, timed at the image block (ViT-B/16,
     B=256), or, for the bench's modes, kernels and sites, at the bench's
     geometry (B=512, LP=200).  ``launches`` is the count of the run named by
@@ -2619,7 +3191,10 @@ def phase_kernels(counts, times, vtimes):
     kernel timed apiece (the four GEMMs of a block, quant_rows on the
     attention output and on the fp32 hidden) are summed.  ``ms`` is the
     CUDA-event time of one call (with the host's time to reach the launch),
-    ``device_ms`` the same call's device time (:func:`device_ms`)."""
+    ``device_ms`` the same call's device time (:func:`device_ms`).  ``serve``
+    holds the serving path's launches: per replay of each bundle bucket's
+    CUDA graph (counted when it was captured; a replay counts none) and per
+    /classify dispatch of the served traffic."""
     image = times["image"]["kernels"]
     rows = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
@@ -2633,6 +3208,10 @@ def phase_kernels(counts, times, vtimes):
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": counts[path][name],
             "launches_by_path": {run: c.get(name, 0) for run, c in counts.items()},
+            "serve": {"per_replay": {mode: {str(size): n.get(name, 0)
+                                            for size, n in sorted(buckets.items())}
+                                     for mode, buckets in serve["per_replay"].items()},
+                      "per_classify_call": serve["per_classify_call"].get(name, 0)},
             "max_abs_err": max(pt["max_abs_err"] for pt in parts),
             "ms": sum(pt["ms"] for pt in parts),
             "device_ms": sum(pt["device_ms"] for pt in parts),
@@ -2655,9 +3234,15 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from protoclip_tpu_torch import native
     from protoclip_tpu_torch.ops import kernels as K
 
+    # the host preprocess on the native resize + crop: a missing library
+    # raises instead of falling back to PIL
+    os.environ["PROTOCLIP_NATIVE"] = "1"
     info = phase_device(torch)
+    emit({"phase": "native", "preprocess": "native" if native.load() is not None else "PIL",
+          "library": native._build()})
     phase_build()
     K.reset_launch_counts()
     phase_check(torch, np)
@@ -2668,7 +3253,9 @@ def main() -> int:
         rn_cfg, rn_setup, counts["runner"], runner_cfg = phase_runner(torch, np, tmp)
         counts["train"] = phase_train(torch, np, tmp, runner_cfg, rn_setup)
         counts["train_qt"] = phase_train_qt(torch, np, tmp)
-        counts["toolkit"], counts["toolkit_int8"], *vitl = phase_toolkit(torch, np, tmp)
+        counts["toolkit"], counts["toolkit_int8"], *vitl, clf = phase_toolkit(torch, np, tmp)
+        counts["serve_start"], counts["serve"], serve = phase_serve(torch, np, tmp, clf)
+        del clf
     rn_params = rn_setup.clip_params
     del rn_setup
     torch.cuda.empty_cache()
@@ -2678,11 +3265,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, counts["variants"] = phase_variants(torch, np)
     vtimes = phase_variant_times(torch, np)
-    phase_kernels(counts, times, vtimes)
+    phase_kernels(counts, times, vtimes, serve)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(loadgen_main(sys.argv[2:]) if sys.argv[1:2] == ["--loadgen"] else main())

@@ -8,15 +8,16 @@ RandomResizedCrop(scale 0.5-1, bicubic) + HorizontalFlip(0.5)
 exactly as the JAX package draws them, so a seeded loader picks the same
 crops and flips in both packages.
 
-PIL is imported inside the functions that use it.  The JAX package's
-optional native resize+crop (pixel-exact with this PIL path) is not ported.
+PIL is imported inside the functions that use it.  The eval transform runs
+the native fused resize + crop (``protoclip_tpu_torch.native``, pixel-exact
+with the PIL path) where it builds.
 """
 
 from __future__ import annotations
 
 import math
 import random as _random
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,9 +71,23 @@ def center_crop(img, size: int):
 
 
 def clip_preprocess(img, n_px: int = 224) -> np.ndarray:
-    """Eval-time transform of a PIL image -> uint8 (n_px, n_px, 3)."""
+    """Eval-time transform of a PIL image -> uint8 (n_px, n_px, 3).
+
+    Uses the native fused resize + crop (``protoclip_tpu_torch.native``)
+    where the C++ helper builds: pixel-exact with the PIL path (held by
+    ``tests/test_torch_native.py`` across geometries), and faster because
+    it computes only the pixels the crop keeps.  Falls back to PIL;
+    ``$PROTOCLIP_NATIVE=0`` forces the PIL path, ``1`` makes a missing
+    native library an error."""
     if img.mode != "RGB":
         img = img.convert("RGB")
+    from protoclip_tpu_torch import native  # the first call may compile the .so
+
+    # probe before np.asarray: the full-frame copy only serves the native path
+    if native.load() is not None:
+        out = native.resize_shorter_center_crop(np.asarray(img, np.uint8), n_px, n_px)
+        if out is not None:  # the native path may decline the geometry
+            return out
     return np.asarray(center_crop(resize_shorter(img, n_px), n_px), dtype=np.uint8)
 
 
@@ -147,9 +162,23 @@ class TrainTransform:
         return random_train_transform(img, rng or _random, self.n_px)
 
 
+# (mean * 255, 1 / (std * 255)) in fp32, one pair per device: uploaded
+# once, so a call makes no host-to-device copy (which would wait for the
+# stream, and which a CUDA graph cannot capture)
+_NORMALIZE_CONSTANTS: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _normalize_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    consts = _NORMALIZE_CONSTANTS.get(device)
+    if consts is None:
+        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=device) * 255.0
+        inv_std = 1.0 / (torch.tensor(CLIP_STD, dtype=torch.float32, device=device) * 255.0)
+        consts = _NORMALIZE_CONSTANTS.setdefault(device, (mean, inv_std))
+    return consts
+
+
 def normalize_batch(images_u8: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``ToTensor + Normalize`` on the tensor's device: uint8 (B, H, W, 3)
     -> normalized, channels last, in ``dtype``."""
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=images_u8.device) * 255.0
-    inv_std = 1.0 / (torch.tensor(CLIP_STD, dtype=torch.float32, device=images_u8.device) * 255.0)
+    mean, inv_std = _normalize_constants(images_u8.device)
     return ((images_u8.float() - mean) * inv_std).to(dtype)

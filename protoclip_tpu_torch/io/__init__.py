@@ -1,7 +1,7 @@
 """File IO of the port: checkpoint triples, torch and reference-pickle
-readers, the MAT reader and writer, and the canonical serving encode
-(:func:`make_encode_fn`).  The exported bundles come with the serving
-slice."""
+readers, the MAT reader and writer, the canonical serving encode
+(:func:`make_encode_fn`) and the serving bundle (one CUDA graph per batch
+bucket on the card)."""
 
 from protoclip_tpu_torch.io.checkpoint import (
     checkpoint_paths,
@@ -10,7 +10,11 @@ from protoclip_tpu_torch.io.checkpoint import (
     load_pt,
     save_checkpoint_triple,
 )
-from protoclip_tpu_torch.io.export import make_encode_fn
+from protoclip_tpu_torch.io.export import (
+    load_serving_bundle,
+    make_encode_fn,
+    save_serving_bundle,
+)
 from protoclip_tpu_torch.io.mat import load_mat, save_mat
 
 __all__ = [
@@ -19,7 +23,9 @@ __all__ = [
     "load_mat",
     "load_pkl",
     "load_pt",
+    "load_serving_bundle",
     "make_encode_fn",
     "save_checkpoint_triple",
     "save_mat",
+    "save_serving_bundle",
 ]

@@ -89,10 +89,13 @@ BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
 # -- apply ------------------------------------------------------------------
 
 
-def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
-    """(B, H, W, 3) preprocessed images -> (B, embed_dim) features."""
+def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig,
+                 int8: Optional[bool] = None) -> torch.Tensor:
+    """(B, H, W, 3) preprocessed images -> (B, embed_dim) features.  ``int8``
+    picks a ViT's block mode (None: ``$PROTOCLIP_INT8``); a ResNet tower
+    has no transformer blocks."""
     if cfg.is_vit:
-        return _vit.apply_vit(params["visual"], images, cfg)
+        return _vit.apply_vit(params["visual"], images, cfg, int8=int8)
     return _resnet.apply_resnet(params["visual"], images, cfg)
 
 

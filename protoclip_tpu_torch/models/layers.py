@@ -45,7 +45,8 @@ def residual_block(x: torch.Tensor, p: Dict, n_head: int,
 
 def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
                 mask: Optional[torch.Tensor] = None, causal: bool = False,
-                qblocks: Optional[List[Dict]] = None) -> torch.Tensor:
+                qblocks: Optional[List[Dict]] = None,
+                int8: Optional[bool] = None) -> torch.Tensor:
     """Run the residual blocks in order.
 
     Without an explicit mask every layer is one call of K2
@@ -58,9 +59,12 @@ def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
     K3, the W8A8 block (``ops.kernels.fused_transformer_block_int8``), on
     ``qblocks``: the int8 layers that ``models.clip.quantize_for_serving``
     made at load.  Without them the blocks are quantized here, once per
-    call.
+    call.  ``int8`` picks the mode explicitly (a serving bundle carries its
+    own); None reads ``$PROTOCLIP_INT8``.
     """
-    if mask is None and int8_enabled():
+    if int8 is None:
+        int8 = int8_enabled()
+    if mask is None and int8:
         if qblocks is None:
             qblocks = [quantize_block(block) for block in blocks]
         for qblock in qblocks:

@@ -6,7 +6,7 @@ the strided convolution of the reference for stride == kernel == patch.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -24,14 +24,17 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def apply_vit(params: Dict, images: torch.Tensor, cfg) -> torch.Tensor:
-    """Encode preprocessed images (B, H, W, 3) -> embeddings (B, embed_dim)."""
+def apply_vit(params: Dict, images: torch.Tensor, cfg,
+              int8: Optional[bool] = None) -> torch.Tensor:
+    """Encode preprocessed images (B, H, W, 3) -> embeddings (B, embed_dim);
+    ``int8`` as in :func:`layers.transformer`."""
     dtype = params["patch_embed"].dtype
     x = patchify(images.to(dtype), cfg.vision_patch_size) @ params["patch_embed"]
     cls = params["class_embedding"].to(dtype).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1) + params["positional_embedding"].to(dtype)
     x = layer_norm(x, params["ln_pre"]["scale"], params["ln_pre"]["bias"])
-    x = transformer(x, params["blocks"], cfg.vision_heads, qblocks=params.get("blocks_q"))
+    x = transformer(x, params["blocks"], cfg.vision_heads, qblocks=params.get("blocks_q"),
+                    int8=int8)
     cls_out = layer_norm(x[:, 0, :], params["ln_post"]["scale"], params["ln_post"]["bias"])
     return cls_out @ params["proj"].to(dtype)
 

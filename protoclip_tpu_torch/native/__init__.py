@@ -1,0 +1,158 @@
+"""Native (C++) host-side image preprocess, bound with ctypes (counterpart
+of ``protoclip_tpu/native``).
+
+The card does the model math; the host's hot loop is the image
+preprocess (JPEG decode -> bicubic resize -> center crop).
+``preprocess.cpp`` (a copy of the JAX package's) computes the resize and
+crop fused and pixel-exact with PIL (the arithmetic contract is in its
+header).  This module compiles it at first use with ``g++ -O3 -shared``
+into ``build/native/`` at the repository root, beside the CUDA kernels'
+library, under a key of its own (source hash, flags and host CPU), so the
+two packages never load each other's object.  There is no Python.h and no
+pybind11.  If no toolchain is there or the build fails, callers fall back
+to PIL.
+
+Gate: ``$PROTOCLIP_NATIVE``: ``1`` forces it on (raise if unavailable),
+``0`` forces it off, unset uses it where it builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+_SRC = Path(__file__).resolve().parent / "preprocess.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+
+# -ffp-contract=off: the pixel-exact contract with PIL depends on the
+# coefficient doubles rounding identically; FMA contraction could perturb a
+# weight sitting within 1 ulp of a quantization boundary.
+_BASE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+
+
+def _machine_tag() -> str:
+    """Host identity folded into the build key: -march=native objects are
+    not portable across CPUs."""
+    ident = f"{platform.machine()}:{platform.processor()}"
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith(("model name", "Processor")):
+                    ident += ":" + line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return ident
+
+
+def _build() -> Optional[str]:
+    """Compile preprocess.cpp into ``BUILD_DIR`` (keyed by source hash +
+    flags + host CPU); returns the .so path, or None without a toolchain."""
+    src = _SRC.read_bytes()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for flags in ((*_BASE_FLAGS, "-march=native"), _BASE_FLAGS):
+        tag = hashlib.sha256(
+            src + " ".join(flags).encode() + _machine_tag().encode()
+        ).hexdigest()[:16]
+        out = BUILD_DIR / f"preprocess_{tag}.so"
+        if out.exists():
+            return str(out)
+        # mkstemp: the name is created, not just reserved, so two concurrent
+        # builders never share a temp path and os.replace a torn object
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(["g++", *flags, str(_SRC), "-o", tmp], check=True,
+                           capture_output=True, timeout=120)
+        except (OSError, subprocess.SubprocessError):
+            try:  # leave no failed or timed-out object behind
+                os.unlink(tmp)
+            except OSError:
+                pass
+            continue  # e.g. toolchains without -march=native
+        os.replace(tmp, out)  # atomic: concurrent builders race benignly
+        return str(out)
+    return None
+
+
+def load() -> Optional[ctypes.CDLL]:
+    """The bound library, or None (unavailable or turned off)."""
+    global _lib, _tried
+    if os.environ.get("PROTOCLIP_NATIVE", "") == "0":
+        return None
+    force_on = os.environ.get("PROTOCLIP_NATIVE") == "1"
+    with _lock:
+        if _tried:
+            if _lib is None and force_on:
+                # raise on every call: latching the failure would serve PIL
+                # pixels despite the force-on gate
+                raise RuntimeError(
+                    "PROTOCLIP_NATIVE=1 but the native preprocess is "
+                    "unavailable (g++ missing or compile/load failed)"
+                )
+            return _lib
+        _tried = True
+        lib = None
+        for _attempt in range(2):
+            path = _build()
+            if path is None:
+                break
+            try:
+                lib = ctypes.CDLL(path)
+                break
+            except OSError:
+                # a stale or foreign object in the build directory: evict it
+                # so the next _build() compiles afresh
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+        if lib is None:
+            if force_on:
+                raise RuntimeError(
+                    "PROTOCLIP_NATIVE=1 but the native preprocess could not "
+                    "be built/loaded (g++ missing or compile failed)"
+                )
+            return None
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.resize_shorter_center_crop.restype = ctypes.c_int
+        lib.resize_shorter_center_crop.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p,
+                                                   ctypes.c_int, ctypes.c_int]
+        _lib = lib
+        return _lib
+
+
+def _as_u8_ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def resize_shorter_center_crop(src: np.ndarray, size: int, crop: int) -> Optional[np.ndarray]:
+    """Fused shorter-side bicubic resize + center crop, pixel-exact with the
+    PIL path in ``data.transforms``.  ``src`` is (H, W, 3) uint8.  Returns
+    None when the native path is unavailable or declines the geometry
+    (e.g. an upscale whose resized image is smaller than the crop): callers
+    fall back to PIL."""
+    lib = load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    if src.ndim != 3 or src.shape[2] != 3:
+        return None
+    dst = np.empty((crop, crop, 3), np.uint8)
+    rc = lib.resize_shorter_center_crop(
+        _as_u8_ptr(src), src.shape[0], src.shape[1], _as_u8_ptr(dst), size, crop
+    )
+    return dst if rc == 0 else None
+

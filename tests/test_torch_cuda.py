@@ -680,3 +680,79 @@ def test_cuda_classifier_matches_cpu(cuda_device, dtype, tmp_path, monkeypatch):
     cpu_p, cpu_i = cpu._top_k(feats)
     np.testing.assert_array_equal(cpu_i.numpy(), ids)
     np.testing.assert_allclose(cpu_p.numpy(), probs, atol=1e-5, rtol=0)
+
+
+def _tiny_bundle(tmp_path, int8):
+    """A serving bundle of a small ViT (2 layers at width 64, random weights
+    from seed 0, bf16) with buckets 1, 4 and 8."""
+    from protoclip_tpu_torch.io.export import save_serving_bundle
+    from protoclip_tpu_torch.models import clip
+
+    cfg = clip.CLIPConfig("tiny-vit", embed_dim=64, image_resolution=32, vision_layers=2,
+                          vision_width=64, vision_patch_size=16, context_length=16,
+                          vocab_size=128, transformer_width=64, transformer_layers=1)
+    params = clip.cast_params(clip.init_clip_params(np.random.default_rng(0), cfg),
+                              torch.bfloat16)
+    path = str(tmp_path / "bundle")
+    save_serving_bundle(path, cfg, params, batch_size=8, batch_sizes=(1, 4), int8=int8)
+    return path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_bundle_replays_match_eager_and_buckets_keep_rows(cuda_device, tmp_path, int8):
+    """Each bucket of a bundle loaded on the card is a CUDA graph whose
+    capture launched the block once a layer (K3 in an int8 bundle); a
+    replay equals the eager encode of the same bucket bit for bit; the
+    rows of every bucket, full and padded, stay within the JAX bundle bars
+    of the largest bucket's (bf16 1e-5; int8 1e-2, row cosine 0.9995)."""
+    from protoclip_tpu_torch.io.export import load_serving_bundle, make_encode_fn
+
+    enc = load_serving_bundle(_tiny_bundle(tmp_path, int8), device=cuda_device)
+    block = "fused_transformer_block_int8" if int8 else "fused_transformer_block"
+    images = np.random.default_rng(1).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    full = enc(images)
+    assert full.shape == (8, 64) and full.dtype == np.float32
+    eager = make_encode_fn(enc.cfg, int8=int8)
+    for size, art in enc.artifacts.items():
+        assert isinstance(art.graph, torch.cuda.CUDAGraph)
+        assert art.launches_per_replay[block] == enc.cfg.vision_layers
+        replayed = art(images[:size])
+        want = eager(enc.params, art.input).cpu().numpy()
+        np.testing.assert_array_equal(replayed, want)
+        for n in {size, max(1, size - 3)}:
+            rows = enc(images[:n])
+            if int8:
+                assert np.abs(rows - full[:n]).max() <= 1e-2
+                cos = (rows * full[:n]).sum(-1) / (np.linalg.norm(rows, axis=-1)
+                                                   * np.linalg.norm(full[:n], axis=-1))
+                assert cos.min() >= 0.9995
+            else:
+                assert np.abs(rows - full[:n]).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_bundle_capture_failure_raises(cuda_device, tmp_path, monkeypatch):
+    """An encode that cannot be captured (it waits for the card) makes the
+    load raise, naming the bucket: there is no eager fallback on the card."""
+    from protoclip_tpu_torch.io import export
+
+    real = export.make_encode_fn
+
+    def syncing(cfg, normalize=True, int8=None):
+        encode = real(cfg, normalize, int8)
+
+        def fn(params, images):
+            out = encode(params, images)
+            float(out.sum())  # a device-to-host read: not capturable
+            return out
+
+        return fn
+
+    path = _tiny_bundle(tmp_path, False)
+    monkeypatch.setattr(export, "make_encode_fn", syncing)
+    with pytest.raises(RuntimeError, match="capturing the CUDA graph of bucket 8"):
+        export.load_serving_bundle(path, device=cuda_device)
+    monkeypatch.setattr(export, "make_encode_fn", real)
+    enc = export.load_serving_bundle(path, device=cuda_device)  # the card still captures
+    assert enc(np.zeros((2, 32, 32, 3), np.uint8)).shape == (2, 64)

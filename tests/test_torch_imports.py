@@ -51,8 +51,11 @@ def test_port_has_files():
                    "toolkit/__init__.py", "toolkit/classifier.py", "toolkit/ood.py",
                    "toolkit/tsne.py", "toolkit/robot.py", "toolkit/paper_figures.py",
                    "toolkit/speech.py", "toolkit/ros_utils.py", "toolkit/ros_nodes.py",
-                   "cli/ood.py", "cli/tsne.py", "cli/transcribe.py", "cli/ros_node.py"):
+                   "cli/ood.py", "cli/tsne.py", "cli/transcribe.py", "cli/ros_node.py",
+                   "toolkit/microbatch.py", "obs/profiler.py", "io/export.py", "cli/export.py",
+                   "cli/serve.py", "client.py", "native/__init__.py"):
         assert "protoclip_tpu_torch/" + module in rel, module
+    assert (REPO / "protoclip_tpu_torch" / "native" / "preprocess.cpp").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

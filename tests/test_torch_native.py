@@ -1,0 +1,117 @@
+"""The port's native preprocess (``protoclip_tpu_torch/native``) on the CPU:
+the fused bicubic resize + center crop (the one entry point the port
+calls), pixel-exact with PIL and with the JAX package's ``native`` over the
+geometries of ``tests/test_native.py``; the ``$PROTOCLIP_NATIVE`` gate; the
+build directory and key of its own; the eviction of a stale object."""
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from protoclip_tpu import native as jax_native
+from protoclip_tpu.data.transforms import clip_preprocess as jax_clip_preprocess
+
+from protoclip_tpu_torch import native
+from protoclip_tpu_torch.data.transforms import center_crop, clip_preprocess, resize_shorter
+from tests.test_native import GEOMETRIES
+
+
+@pytest.fixture()
+def built(monkeypatch):
+    """Both packages' libraries, or a skip where g++ cannot build them."""
+    monkeypatch.delenv("PROTOCLIP_NATIVE", raising=False)
+    try:
+        ours, theirs = native.load(), jax_native.load()
+    except RuntimeError:
+        ours = theirs = None
+    if ours is None or theirs is None:
+        pytest.skip("native preprocess unavailable (no g++)")
+    return ours
+
+
+def _pil(src, size, crop):
+    return np.asarray(center_crop(resize_shorter(Image.fromarray(src), size), crop))
+
+
+@pytest.mark.parametrize("h,w", GEOMETRIES)
+def test_fused_resize_crop_pixel_exact(built, h, w):
+    src = np.random.default_rng(h * 1000 + w).integers(0, 256, (h, w, 3), np.uint8)
+    got = native.resize_shorter_center_crop(src, 224, 224)
+    np.testing.assert_array_equal(got, _pil(src, 224, 224))
+    np.testing.assert_array_equal(got, jax_native.resize_shorter_center_crop(src, 224, 224))
+
+
+@pytest.mark.parametrize("size,crop", [(256, 224), (288, 224), (300, 96), (97, 64)])
+def test_size_not_equal_crop_pixel_exact(built, size, crop):
+    src = np.random.default_rng(size * 31 + crop).integers(0, 256, (375, 500, 3), np.uint8)
+    got = native.resize_shorter_center_crop(src, size, crop)
+    np.testing.assert_array_equal(got, _pil(src, size, crop))
+    np.testing.assert_array_equal(got, jax_native.resize_shorter_center_crop(src, size, crop))
+
+
+def test_fuzz_geometries(built):
+    rng = np.random.default_rng(0)
+    for _ in range(25):
+        h, w = int(rng.integers(30, 900)), int(rng.integers(30, 900))
+        n_px = int(rng.choice([96, 224, 288, 336]))
+        src = rng.integers(0, 256, (h, w, 3), np.uint8)
+        got = native.resize_shorter_center_crop(src, n_px, n_px)
+        assert got is not None, (h, w, n_px)
+        np.testing.assert_array_equal(got, _pil(src, n_px, n_px), err_msg=f"{h}x{w} {n_px}")
+        np.testing.assert_array_equal(got, jax_native.resize_shorter_center_crop(src, n_px, n_px))
+
+
+def test_bad_shapes_are_declined(built):
+    assert native.resize_shorter_center_crop(np.zeros((10, 10), np.uint8), 224, 224) is None
+    out = clip_preprocess(Image.new("L", (300, 260), 128), 224)  # converted before the call
+    assert out.shape == (224, 224, 3) and (out == 128).all()
+
+
+def test_clip_preprocess_is_native_and_equals_pil_and_jax(built, monkeypatch):
+    src = np.random.default_rng(5).integers(0, 256, (375, 500, 3), np.uint8)
+    img = Image.fromarray(src)
+    calls = []
+    real = native.resize_shorter_center_crop
+
+    def spy(*args):
+        calls.append(args[1:])
+        return real(*args)
+
+    monkeypatch.setattr(native, "resize_shorter_center_crop", spy)
+    via_native = clip_preprocess(img, 224)
+    assert calls == [(224, 224)]  # not a PIL-against-PIL pass
+    monkeypatch.setenv("PROTOCLIP_NATIVE", "0")
+    via_pil = clip_preprocess(img, 224)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(via_native, via_pil)
+    np.testing.assert_array_equal(via_native, jax_clip_preprocess(img, 224))
+
+
+def test_env_gate(built, monkeypatch):
+    monkeypatch.setenv("PROTOCLIP_NATIVE", "0")
+    assert native.load() is None
+    assert native.resize_shorter_center_crop(np.zeros((64, 64, 3), np.uint8), 224, 224) is None
+    # forced on with no toolchain: every call raises, none falls back to PIL
+    monkeypatch.setenv("PROTOCLIP_NATIVE", "1")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_build", lambda: None)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="PROTOCLIP_NATIVE=1"):
+            clip_preprocess(Image.new("RGB", (40, 30)), 32)
+
+
+def test_build_is_the_ports_own_and_a_stale_object_is_rebuilt(built, monkeypatch, tmp_path):
+    path = native._build()
+    assert str(native.BUILD_DIR) in path and path != jax_native._build()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    fresh = native._build()
+    assert fresh.startswith(str(tmp_path))
+    with open(fresh, "wb") as fh:
+        fh.write(b"not an elf object")  # a stale entry
+    assert native.load() is not None, "the loader must rebuild past the stale object"
+    src = np.random.default_rng(3).integers(0, 256, (64, 80, 3), np.uint8)
+    np.testing.assert_array_equal(native.resize_shorter_center_crop(src, 32, 32),
+                                  _pil(src, 32, 32))
