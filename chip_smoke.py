@@ -90,14 +90,29 @@ Phases, one JSON line each on stdout:
              The host preprocess runs natively ($PROTOCLIP_NATIVE=1); its
              decode + preprocess ms is also timed through PIL on the same
              JPEGs (and on the toolkit phase's crops).
-11. times  - each kernel (CUDA events around one call, and its device
+11. mesh   - the data mesh (``protoclip_tpu_torch.parallel``) at full
+             width on the one card (ViT-B/16, random weights, bf16 and
+             W8A8): ``train.runner.make_encode_fns(cfg, make_mesh(1))`` on a
+             B=256 batch bit for bit the unsharded encode (K2 / K3 12 an
+             encode); two 128-row shards on cuda:0 against it (cosine
+             >= 0.99999, max abs error and exactness reported); one NCCL
+             rank and one sharded F-Q^T step (batch 64) against the
+             unsharded step, bit for bit; two processes of this script
+             (``--mesh-rank``) over gloo on cuda:0: the gathered features
+             against the one-process encode, the gather's ms, one Q^T step
+             whose parameters agree bit for bit across the ranks; the serve
+             CLI's mesh route (32 rows a device) over HTTP and ``cli.extract
+             --mesh 1``, each bit for bit the direct call; images/s of the
+             mesh encodes against the unsharded one (wiring cost on one
+             card, not scaling).
+12. times  - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
              (images B=256, prompts B=1024) and at the classifier's ViT-L/14
              image block (B=16), and the encode rates in bf16 (K2) and int8
              (K3), and RN50's image encode in bf16.
-12. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+13. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over every variant at the full
              ViT-B/16 geometry (B=512, LP=200, 12 layers) and four at
@@ -108,7 +123,7 @@ Phases, one JSON line each on stdout:
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times), the int8 attention core
              also at ViT-L/14's (B=128, LP=264).
-13. kernels - the contract line: every ported kernel with the path or phase
+14. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches (by path, the runner's, the
              trainers' and the server's too, and per replay of each serving
              bucket's CUDA graph), error, times and bound.
@@ -2494,7 +2509,360 @@ def tensors(tree):
         yield tree
 
 
-# -- 11. times ------------------------------------------------------------------------
+# -- 11. the data mesh on one card -------------------------------------------------------
+
+MESH_BACKBONE = "ViT-B/16"
+MESH_BATCH = 256
+MESH_QT_BATCH = 64
+MESH_COSINE = 0.99999
+MESH_SERVE_BATCH = 32  # per device
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT_S = 240
+
+
+def mesh_config():
+    """The runner's config for the mesh phase: ViT-B/16, random weights
+    (seed 0), bf16."""
+    from protoclip_tpu_torch.core import Config
+
+    return Config(dataset="caltech101", backbone=MESH_BACKBONE, compute_dtype="bfloat16")
+
+
+def mesh_images(np):
+    """The phase's global batch: MESH_BATCH seeded uint8 224 x 224 images."""
+    return np.random.default_rng(SEED + 11).integers(0, 256, (MESH_BATCH, 224, 224, 3),
+                                                     dtype=np.uint8)
+
+
+def mesh_qt_trainer(np, clip_cfg, params, mesh=None, device=None):
+    """A Q^T trainer over ViT-B/16 (10 classes x 4 shots, fc adapter), the
+    same initial state on every process."""
+    from protoclip_tpu_torch.train import QTTrainer
+
+    np_rng = np.random.default_rng(SEED + 12)
+    d = clip_cfg.embed_dim
+    return QTTrainer(clip_params=params, clip_cfg=clip_cfg,
+                     bank_v_init=np_rng.standard_normal((N_CLASS * SHOTS, d)).astype(np.float32),
+                     bank_t_init=np_rng.standard_normal((N_CLASS, d)).astype(np.float32),
+                     n_class=N_CLASS, k_shots=SHOTS, adapter_kind="fc", alpha=0.5, beta=5.0,
+                     lr=1e-3, train_epoch=2, seed=SEED, mesh=mesh, device=device)
+
+
+def mesh_qt_batch(np):
+    images = mesh_images(np)[:MESH_QT_BATCH]
+    labels = np.random.default_rng(SEED + 13).integers(0, N_CLASS, MESH_QT_BATCH)
+    return images, labels
+
+
+def named_params(trainer):
+    from protoclip_tpu_torch.train.episodic import named_leaves
+
+    return {name: p.detach().float().cpu().numpy() for name, p in named_leaves(trainer.params)}
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of the mesh phase's two-process check (``chip_smoke.py
+    --mesh-rank RANK WORLD RENDEZVOUS OUT``): joins the gloo group, encodes
+    its shard of the global batch on ``cuda:0`` through the runner's mesh
+    encode (the features gathered over the group), times the gather, runs
+    one sharded Q^T step, and writes what it saw to ``OUT`` (``.npz``)."""
+    import numpy as np
+    import torch
+
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.parallel import init_distributed, make_mesh
+    from protoclip_tpu_torch.parallel.sharding import _all_gather_rows
+    from protoclip_tpu_torch.train.runner import make_encode_fns
+
+    rank, world, rendezvous, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    init_distributed(f"file://{rendezvous}", world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(devices=["cuda:0"])
+        encode, _, clip_cfg, params = make_encode_fns(mesh_config(), mesh=mesh)
+        images = mesh_images(np)
+        encode(images)  # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        feats = encode(images)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        rows = MESH_BATCH // world
+        local = feats[rank * rows:(rank + 1) * rows]
+        gather_ms = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gathered = _all_gather_rows(local)
+            torch.cuda.synchronize()
+            gather_ms.append((time.perf_counter() - t0) * 1e3)
+        trainer = mesh_qt_trainer(np, clip_cfg, params, mesh=mesh)
+        qt_images, labels = mesh_qt_batch(np)
+        stats = trainer.train_step(qt_images, labels, MESH_QT_BATCH)
+        np.savez(out, features=feats.float().cpu().numpy(),
+                 gathered_equal=np.asarray(torch.equal(gathered, feats)),
+                 gather_ms=np.asarray(sorted(gather_ms)), loss=np.asarray(stats["loss"]),
+                 k2=np.asarray(counts["fused_transformer_block"]),
+                 **{f"param/{k}": v for k, v in named_params(trainer).items()})
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_mesh_ranks(np, tmp):
+    """MESH_RANKS processes of this script sharing cuda:0 over gloo (NCCL
+    refuses two ranks on one card), each joined with a hard timeout."""
+    rendezvous = os.path.join(tmp, "mesh_rendezvous")
+    outs = [os.path.join(tmp, f"mesh_rank{r}.npz") for r in range(MESH_RANKS)]
+    logs = [open(os.path.join(tmp, f"mesh_rank{r}.log"), "w+") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                               str(MESH_RANKS), rendezvous, outs[r]],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(MESH_RANKS)]
+    deadline = time.monotonic() + MESH_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        tails = []
+        for log in logs:
+            log.seek(0)
+            tails.append(log.read()[-3000:])
+            log.close()
+    require(all(p.returncode == 0 for p in procs),
+            f"mesh ranks exit codes {[p.returncode for p in procs]}: {tails}")
+    results = []
+    for out in outs:
+        with np.load(out) as z:
+            results.append({k: z[k] for k in z.files})
+    return results
+
+
+def phase_mesh(torch, np, tmp):
+    """The data mesh through the runner, the Q^T trainer, the server and the
+    extract CLI, on one card: (a) ``make_encode_fns(cfg, make_mesh(1))``
+    encodes a B=256 batch in bf16 (K2) and W8A8 (K3), bit for bit the
+    unsharded encode; (b) two 128-row shards on cuda:0 against the B=256
+    encode; (c) one rank of NCCL and one sharded Q^T step (batch 64)
+    against the unsharded step; (d) two processes of this script over gloo
+    on cuda:0: the gathered features against the single-process encode and
+    one Q^T step, the same parameters bit for bit on both ranks; (e) the
+    serve CLI's mesh route (32 rows a device) and ``cli/extract.py
+    --mesh 1``.  One card shows the wiring, not any scaling.  The launch
+    counts are set to 0 before each mesh encode of (a) and read after."""
+    from protoclip_tpu_torch.data import normalize_batch
+    from protoclip_tpu_torch.models.clip import encode_image
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        make_sharded_encode,
+        replicated,
+    )
+    from protoclip_tpu_torch.parallel.sharding import _all_gather_rows
+    from protoclip_tpu_torch.train.runner import make_encode_fns
+
+    t_phase = time.perf_counter()
+    images = mesh_images(np)
+    one = make_mesh(1)
+    two = make_mesh(devices=["cuda:0", "cuda:0"])
+    counts: dict = {}
+    report: dict = {}
+    loaded = {}
+    for mode in ("bf16", "int8"):
+        with int8_mode() if mode == "int8" else contextlib.nullcontext():
+            encode, _, clip_cfg, params = make_encode_fns(mesh_config(), mesh=one)
+            loaded[mode] = params
+
+            @torch.inference_mode()
+            def image(p, x):
+                return encode_image(p, normalize_batch(x, torch.bfloat16), clip_cfg)
+
+            def unsharded():
+                return image(params, torch.from_numpy(images).cuda())
+
+            sharded_two = make_sharded_encode(image, two)
+            replicas_two = replicated(two).put(params)
+            ref = unsharded()
+            encode(images)  # warm-up
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            got = encode(images)
+            torch.cuda.synchronize()
+            run_counts = K.launch_counts()
+            for name, n in run_counts.items():
+                counts[name] = counts.get(name, 0) + n
+            block = "fused_transformer_block_int8" if mode == "int8" else "fused_transformer_block"
+            other = "fused_transformer_block" if mode == "int8" else "fused_transformer_block_int8"
+            require(run_counts[block] == clip_cfg.vision_layers and run_counts[other] == 0,
+                    f"mesh encode ({mode}) launches {run_counts}")
+            require(torch.equal(got, ref), f"mesh of 1 ({mode}) differs from the unsharded "
+                    f"encode: {float((got.float() - ref.float()).abs().max())}")
+            got_two = sharded_two(replicas_two, images)
+            cos_two = float(row_cosines(torch, got_two.float(), ref.float()).min())
+            err_two = float((got_two.float() - ref.float()).abs().max())
+            require(cos_two >= MESH_COSINE, f"two shards on one card ({mode}): cosine "
+                    f"{cos_two}, max abs {err_two}")
+            ms = {"unsharded": median_ms(torch, unsharded),
+                  "mesh_1": median_ms(torch, lambda: encode(images)),
+                  "mesh_2_shards_one_card": median_ms(torch,
+                                                      lambda: sharded_two(replicas_two, images))}
+            report[mode] = {
+                "mesh_1_bit_identical": True, "launches_mesh_1": run_counts[block],
+                "two_shards_bit_identical": bool(torch.equal(got_two, ref)),
+                "two_shards_min_cosine": cos_two, "two_shards_max_abs_err": err_two,
+                "ms": ms, "images_per_s": {k: MESH_BATCH / (v / 1e3) for k, v in ms.items()},
+            }
+            if mode == "bf16":
+                ref_bf16, cfg_vit = ref, clip_cfg
+            del encode, sharded_two, replicas_two, got, got_two
+    params = loaded.pop("bf16")
+    loaded.clear()
+    torch.cuda.empty_cache()
+
+    # (c) one rank of NCCL: the sharded Q^T step against the unsharded one
+    import socket
+
+    saved = {k: os.environ.get(k) for k in ("PROTOCLIP_COORDINATOR", "PROTOCLIP_NUM_PROCESSES",
+                                            "PROTOCLIP_PROCESS_ID")}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    os.environ.update(PROTOCLIP_COORDINATOR=f"127.0.0.1:{port}", PROTOCLIP_NUM_PROCESSES="1",
+                      PROTOCLIP_PROCESS_ID="0")
+    qt_images, labels = mesh_qt_batch(np)
+    try:
+        multi = init_distributed()
+        backend = torch.distributed.get_backend()
+        require(not multi and backend == "nccl", f"one NCCL rank: {multi}, {backend}")
+        meshed = mesh_qt_trainer(np, cfg_vit, params, mesh=make_mesh())
+        alone = mesh_qt_trainer(np, cfg_vit, params, device="cuda")
+        feats = meshed.encode(qt_images)
+        gathered = _all_gather_rows(feats)
+        got = meshed.train_step(qt_images, labels, MESH_QT_BATCH)
+        want = alone.train_step(qt_images, labels, MESH_QT_BATCH)
+        p_mesh, p_alone = named_params(meshed), named_params(alone)
+        same = all(np.array_equal(p_mesh[k], p_alone[k]) for k in p_alone)
+        require(torch.equal(gathered, feats), "NCCL all_gather at one rank changed the rows")
+        require(got["loss"] == want["loss"] and same,
+                f"sharded Q^T step vs unsharded: loss {got['loss']} vs {want['loss']}, "
+                f"parameters equal {same}")
+        report["nccl_one_rank"] = {"backend": backend, "loss": got["loss"],
+                                   "loss_unsharded": want["loss"], "params_bit_identical": same}
+        del meshed, alone
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # (d) two ranks over gloo on cuda:0
+    ranks = run_mesh_ranks(np, tmp)
+    feats0 = torch.from_numpy(ranks[0]["features"])
+    ref_cpu = ref_bf16.float().cpu()
+    cos_d = float(row_cosines(torch, feats0, ref_cpu).min())
+    err_d = float((feats0 - ref_cpu).abs().max())
+    param_keys = [k for k in ranks[0] if k.startswith("param/")]
+    ranks_same = all(np.array_equal(ranks[0][k], ranks[1][k]) for k in param_keys)
+    require(all(bool(r["gathered_equal"]) for r in ranks), "a rank's gather changed the rows")
+    require(np.array_equal(ranks[0]["features"], ranks[1]["features"]),
+            "the two ranks gathered different features")
+    require(cos_d >= MESH_COSINE, f"two gloo ranks vs one process: cosine {cos_d}, "
+            f"max abs {err_d}")
+    require(ranks_same and float(ranks[0]["loss"]) == float(ranks[1]["loss"]),
+            "the two ranks' Q^T parameters differ")
+    require(all(int(r["k2"]) == cfg_vit.vision_layers for r in ranks),
+            f"K2 launches per rank {[int(r['k2']) for r in ranks]}")
+    report["gloo_two_ranks"] = {
+        "bit_identical_to_one_process": bool(torch.equal(feats0, ref_cpu)),
+        "min_cosine": cos_d, "max_abs_err": err_d, "k2_launches_per_rank": [int(r["k2"])
+                                                                          for r in ranks],
+        "gather_ms_median": [float(np.median(r["gather_ms"])) for r in ranks],
+        "qt_loss": float(ranks[0]["loss"]), "qt_params_bit_identical_across_ranks": ranks_same}
+
+    report["routes"] = mesh_routes(torch, np, tmp, cfg_vit, params)
+    emit({"phase": "mesh", "backbone": MESH_BACKBONE, "weights": "random, seed 0",
+          "batch": MESH_BATCH, **report, "launches": counts,
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+def mesh_routes(torch, np, tmp, clip_cfg, params):
+    """(e) The serve CLI's mesh route (MESH_SERVE_BATCH rows a device) over
+    HTTP against direct calls of the serving encode on the same padded
+    block, and ``cli/extract.py --mesh 1`` on the serve phase's JPEGs
+    against the unsharded run, both bit for bit."""
+    import base64
+    import threading
+
+    from protoclip_tpu_torch.cli import extract as extract_cli
+    from protoclip_tpu_torch.cli.serve import _make_pool, _preprocess_block, build_server
+    from protoclip_tpu_torch.client import ServeClient
+    from protoclip_tpu_torch.io.export import make_encode_fn
+
+    jpegs = serve_jpegs(np)
+    srv = build_server(port=0, clip=(clip_cfg, params), mesh_devices=1,
+                       per_device_batch=MESH_SERVE_BATCH, quiet=True, coalesce_ms=0.0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    client = ServeClient(f"http://127.0.0.1:{srv.server_address[1]}", timeout=120)
+    encode = make_encode_fn(clip_cfg)
+    pool = _make_pool()
+    try:
+        health = client.healthz()
+        require(health["mesh_devices"] == 1 and health["batch_size"] == MESH_SERVE_BATCH
+                and health["int8"] is False, f"mesh route /healthz {health}")
+        served = []
+        for n in (1, 3, 4):
+            got = client.encode(jpegs[:n])
+            payload = {"images": [base64.b64encode(j).decode() for j in jpegs[:n]]}
+            block = np.zeros((MESH_SERVE_BATCH, 224, 224, 3), np.uint8)
+            block[:n] = _preprocess_block(payload, 224, pool, False)
+            want = encode(params, torch.from_numpy(block).cuda()).cpu().numpy()[:n]
+            require(np.array_equal(got, want), f"mesh route, {n} images: max abs "
+                    f"{float(np.abs(got - want).max())}")
+            served.append(n)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+        pool.shutdown(wait=False)
+
+    img_dir = os.path.join(tmp, "mesh_jpegs")
+    os.makedirs(img_dir, exist_ok=True)
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(img_dir, f"{i:03d}.jpg"), "wb") as fh:
+            fh.write(data)
+    feats = {}
+    argv = sys.argv
+    try:
+        for name, flags in (("single", []), ("mesh", ["--mesh", "1"])):
+            out = os.path.join(tmp, f"mesh_extract_{name}.npz")
+            sys.argv = ["extract", "--backbone", MESH_BACKBONE, "--input", img_dir, "--out", out,
+                        "--batch", "16", *flags]
+            extract_cli.main()
+            with np.load(out) as z:
+                feats[name] = z["features"]
+    finally:
+        sys.argv = argv
+    require(feats["mesh"].shape == (len(jpegs), clip_cfg.embed_dim)
+            and np.array_equal(feats["mesh"], feats["single"]),
+            "extract --mesh 1 differs from the unsharded run")
+    return {"serve_requests_images": served, "serve_rows_bit_identical": True,
+            "healthz": {k: health[k] for k in ("mesh_devices", "per_device_batch", "batch_size",
+                                               "int8", "int8_weights_prequantized")},
+            "extract_rows": int(feats["mesh"].shape[0]), "extract_bit_identical": True}
+
+
+# -- 12. times ------------------------------------------------------------------------
 
 TIME_RUNS = 12
 
@@ -2800,7 +3168,7 @@ def device_ms_by_kind(prof, prefix="rn50_profiled"):
     return out
 
 
-# -- 12. the block-variant bench (S1) -------------------------------------------------------
+# -- 13. the block-variant bench (S1) -------------------------------------------------------
 
 VARIANTS = (
     "v0 v1 v2 v3 v4 v5 v6 v6g8 v7 v9 v2g8 v2g32 v10 "
@@ -3127,7 +3495,7 @@ def phase_variant_times(torch, np):
     return r
 
 
-# -- 13. the contract line ------------------------------------------------------------
+# -- 14. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -3256,6 +3624,8 @@ def main() -> int:
         counts["toolkit"], counts["toolkit_int8"], *vitl, clf = phase_toolkit(torch, np, tmp)
         counts["serve_start"], counts["serve"], serve = phase_serve(torch, np, tmp, clf)
         del clf
+        torch.cuda.empty_cache()
+        counts["mesh"] = phase_mesh(torch, np, tmp)
     rn_params = rn_setup.clip_params
     del rn_setup
     torch.cuda.empty_cache()
@@ -3272,4 +3642,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(loadgen_main(sys.argv[2:]) if sys.argv[1:2] == ["--loadgen"] else main())
+    if sys.argv[1:2] == ["--loadgen"]:
+        sys.exit(loadgen_main(sys.argv[2:]))
+    sys.exit(mesh_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-rank"] else main())

@@ -2,7 +2,8 @@
 (counterpart of ``protoclip_tpu/cli/extract.py``).
 
     python -m protoclip_tpu_torch.cli.extract --backbone ViT-B/16 \
-        --input path/to/images --out feats.npz [--int8] [--batch 512] [--device cpu]
+        --input path/to/images --out feats.npz [--int8] [--batch 512] [--mesh N] \
+        [--device cpu]
 
 Walks ``--input`` recursively for image files (sorted, stable order),
 decodes the next batch on a thread pool while the current one encodes,
@@ -12,8 +13,10 @@ block K3 with ``--int8``), L2-normalizes, and writes ``{"files": [...],
 
 ``--device`` (default ``cuda``) takes the place of JAX's platform
 selection.  ``--int8`` runs K3's kernels on the card and K3's plain
-PyTorch version on the CPU; it never falls back to bf16.  The JAX CLI's
-``--mesh`` comes with the multi-GPU slice.
+PyTorch version on the CPU; it never falls back to bf16.  ``--mesh N``
+shards every batch over the first N devices (weights copied to each once;
+the batch rounded up to a multiple of N); each row is encoded as in the
+unsharded run.
 """
 
 from __future__ import annotations
@@ -42,6 +45,10 @@ def main() -> None:
     parser.add_argument("--input", required=True, help="image file or directory")
     parser.add_argument("--out", required=True, help="output .npz path")
     parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="shard encode batches over the first N devices (1-D 'data' mesh, "
+                        "the layout of the experiment encode and of --mesh serving); "
+                        "0 = one device")
     parser.add_argument("--device", default="cuda",
                         help="torch device to encode on (default: the card)")
     parser.add_argument("--int8", action="store_true",
@@ -64,6 +71,7 @@ def main() -> None:
     import torch
 
     from protoclip_tpu_torch.data.transforms import clip_preprocess, load_image
+    from protoclip_tpu_torch.io.checkpoint import replace_atomically
     from protoclip_tpu_torch.io.export import make_encode_fn
     from protoclip_tpu_torch.models.clip import load_clip
 
@@ -81,9 +89,31 @@ def main() -> None:
         raise SystemExit(f"[extract] --out directory is not writable: {out_dir}")
 
     device = torch.device(args.device)
+    mesh = None
+    if args.mesh:
+        from protoclip_tpu_torch.parallel import (
+            make_mesh,
+            make_sharded_encode,
+            mesh_batch,
+            replicated,
+        )
+
+        mesh = make_mesh(args.mesh, devices=None if device.type == "cuda" else
+                         [device] * args.mesh)
+        device = mesh.device
+        args.batch = mesh_batch(args.batch, mesh)
     cfg, params = load_clip(args.backbone, args.weights, dtype=torch.bfloat16, device=device)
     n_px = cfg.image_resolution
-    encode = make_encode_fn(cfg, normalize=not args.no_normalize)
+    encode_batch = make_encode_fn(cfg, normalize=not args.no_normalize)
+    if mesh is None:
+        def encode(p, block: np.ndarray) -> torch.Tensor:
+            return encode_batch(p, torch.from_numpy(block).to(device))
+    else:
+        # each row depends only on its own image, so a shard's rows equal
+        # the unsharded run's at the same per-shard batch; the weights are
+        # copied to the mesh's devices once, not at every chunk
+        params = replicated(mesh).put(params)
+        encode = make_sharded_encode(encode_batch, mesh)
     draft_px = n_px if args.fast_decode else None
 
     def _decode(into, i, path):
@@ -106,7 +136,7 @@ def main() -> None:
             for fut in pending:
                 fut.result()  # barrier, and decode errors surface here
             # fixed batch shape whatever the tail; the kernels run async
-            dev_feats = encode(params, torch.from_numpy(bufs[ci % 2]).to(device))
+            dev_feats = encode(params, bufs[ci % 2])
             if ci + 1 < len(chunks):
                 pending = submit(ci + 1)
             feats_out.append(dev_feats.cpu().numpy()[:len(chunk)])
@@ -115,7 +145,10 @@ def main() -> None:
     print(file=sys.stderr)
 
     features = np.concatenate(feats_out)
-    np.savez(args.out, files=np.asarray(files), features=features)
+    # every process of a multi-process mesh writes the same file: each
+    # through its own tmp file, renamed into place whole
+    with replace_atomically(args.out) as tmp, open(tmp, "wb") as fh:
+        np.savez(fh, files=np.asarray(files), features=features)  # a handle: no .npz appended
     print(f"Wrote {args.out}: {features.shape[0]} x {features.shape[1]} fp32")
 
 

@@ -13,17 +13,24 @@ Test-only with a checkpoint triple::
         --dataset fewsol_198 --only_test
 
 ``--device`` (default ``cuda``) takes the place of JAX's platform choice;
-without CUDA the default raises.  ``--mesh`` and ``--multihost`` exit with a
-message naming the slice that brings them.
+without CUDA the default raises.  ``--mesh N`` shards the encodes (and
+the Q^T steps) over the first N devices; ``--multihost`` joins a
+``torch.distributed`` group first (``parallel.init_distributed``: from
+``torchrun``'s environment or ``$PROTOCLIP_COORDINATOR`` /
+``$PROTOCLIP_NUM_PROCESSES`` / ``$PROTOCLIP_PROCESS_ID``), and ``--mesh``
+then counts every process's devices::
+
+    torchrun --nproc_per_node 8 -m protoclip_tpu_torch.cli.main \
+        --config configs/imagenet.yml --dataset imagenet --qt --multihost --mesh 8
 """
 
 from __future__ import annotations
 
 import argparse
 
-from protoclip_tpu_torch.core.config import load_config
+import torch
 
-MULTI_GPU = "ROADMAP.md queue 1 item 7, multi-GPU"
+from protoclip_tpu_torch.core.config import load_config
 
 
 def get_arguments(argv=None) -> argparse.Namespace:
@@ -52,25 +59,49 @@ def get_arguments(argv=None) -> argparse.Namespace:
                         help="resume from the operating point's trainer-state snapshot if one "
                         "exists (replay-exact: the episodes and batches of an uninterrupted run)")
     parser.add_argument("--qt", action="store_true", help="use the F-Q^T trainer (main.qt.py)")
-    parser.add_argument("--mesh", type=int, default=0, help=f"(not ported: {MULTI_GPU})")
-    parser.add_argument("--multihost", action="store_true", help=f"(not ported: {MULTI_GPU})")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="shard batches over N devices (0 = no mesh)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a multi-process group before any computation "
+                        "(parallel.mesh.init_distributed; from torchrun's environment or "
+                        "$PROTOCLIP_COORDINATOR/$PROTOCLIP_NUM_PROCESSES/$PROTOCLIP_PROCESS_ID). "
+                        "Combine with --mesh <total devices of every process>.")
     parser.add_argument("--device", default="cuda",
-                        help="torch device to run on (default: the card)")
+                        help="torch device to run on (default: the card; with --mesh the "
+                        "mesh's devices are the card's)")
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = get_arguments(argv)
-    for flag in ("mesh", "multihost"):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported yet; it comes with {MULTI_GPU}")
     # every flag passed applies, zeros included (the reference filters by
     # truthiness, main.py:56-63, and drops an explicit --alpha 0)
     overrides = {k: v for k, v in vars(args).items()
                  if k not in ("config", "qt", "mesh", "multihost", "device") and v is not None}
+    if args.multihost:
+        # before load_config and any CUDA call: the process's card is set
+        # from $LOCAL_RANK before the group forms
+        from protoclip_tpu_torch.parallel import init_distributed
+
+        try:
+            up = init_distributed()
+        except ValueError as exc:  # a partial cluster spec: say what is missing
+            raise SystemExit(f"--multihost: {exc}")
+        if not up:
+            raise SystemExit(
+                "--multihost: no cluster found (set $PROTOCLIP_COORDINATOR / "
+                "$PROTOCLIP_NUM_PROCESSES / $PROTOCLIP_PROCESS_ID or launch with torchrun)"
+            )
     cfg = load_config(args.config, **overrides)
     if not cfg.dataset:
         raise SystemExit("Please provide a dataset (--dataset or config key)")
+
+    mesh = None
+    if args.mesh:
+        from protoclip_tpu_torch.parallel import make_mesh
+
+        devices = None if torch.device(args.device).type == "cuda" else [args.device] * args.mesh
+        mesh = make_mesh(args.mesh, devices=devices)
 
     print("Running config:")
     for key, value in sorted(cfg.to_dict().items()):
@@ -79,11 +110,11 @@ def main(argv=None) -> None:
     if args.qt:
         from protoclip_tpu_torch.train.qt_runner import run_qt
 
-        result = run_qt(cfg, device=args.device)
+        result = run_qt(cfg, device=None if mesh else args.device, mesh=mesh)
     else:
         from protoclip_tpu_torch.train.runner import run
 
-        result = run(cfg, device=args.device)
+        result = run(cfg, device=None if mesh else args.device, mesh=mesh)
     print(
         f"RESULT dataset={cfg.dataset} test_acc_fixed={result.test_acc_fixed*100:.2f}% "
         f"test_acc_searched={result.test_acc_searched*100:.2f}%"

@@ -9,6 +9,10 @@ serving surface:
 * ``--bundle DIR`` — encode mode: serve a serving bundle
   (``io/export.py``; on the card one CUDA graph per batch bucket, captured
   when the server starts); ``POST /encode`` returns (B, d) fp32 features.
+* ``--mesh [N] --backbone NAME [--weights PATH]`` — encode mode over a live
+  data-parallel encode: the weights copied to the first N devices (bare
+  ``--mesh``: every card), a fixed global batch of ``--per-device-batch``
+  rows per device sharded over them; ``POST /encode`` as above.
 * ``--config cfg.yml --splits split.json [...checkpoint paths]`` —
   classify mode: serve a ``ProtoClipClassifier``
   (``toolkit/classifier.py``); ``POST /classify`` returns top-k class
@@ -43,10 +47,10 @@ so N concurrent small requests cost one dispatch instead of N.  Coalescing
 does not change a row (per-image independence; asserted in tests).
 ``--coalesce-ms`` sets the fill window (0 = dispatch whatever is queued,
 never wait).  ``--device`` (default ``cuda``) is where the bundle and the
-classifier run.  ``--mesh`` (the JAX server's data-parallel encode) comes
-with the multi-GPU slice.
+classifier run (``--device cpu`` with ``--mesh N`` gives N CPU shards).
 
     python -m protoclip_tpu_torch.cli.serve --bundle bundle/ --port 8421
+    python -m protoclip_tpu_torch.cli.serve --mesh --backbone ViT-B/16 --port 8421
     python -m protoclip_tpu_torch.cli.serve --config configs/fewsol_198.yml \
         --splits splits/fewsol_splits_198.json --port 8421
 """
@@ -55,7 +59,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import contextlib
 import io
 import json
 import os
@@ -64,8 +67,6 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
-
-MULTI_GPU = "ROADMAP.md queue 1 item 7, multi-GPU"
 
 
 def _decode_images(payload: dict, draft_px: Optional[int] = None) -> list:
@@ -118,12 +119,100 @@ def _preprocess_block(payload: dict, n_px: int, pool, fast_decode: bool):
     return block
 
 
-def _on_device(device):
-    """The device context for work on ``device`` from any thread."""
+def make_mesh_encode_route(
+    backbone: Optional[str] = None,
+    weights: Optional[str] = None,
+    mesh_devices: Optional[int] = None,
+    per_device_batch: int = 32,
+    warmup: bool = True,
+    coalesce_ms: float = 5.0,
+    fast_decode: bool = False,
+    pool=None,
+    clip=None,
+    device=None,
+) -> tuple:
+    """(handler, info) for /encode over a live data-parallel encode.
+
+    The bundle route runs on one device; a serving host may have several.
+    This route runs the canonical serving encode (``io/export.py::
+    make_encode_fn``) sharded over a 1-D mesh of the first ``mesh_devices``
+    cards (``parallel.make_sharded_encode``; None: every card): the
+    weights are copied to each card once, every card encodes its shard of a
+    fixed global batch of ``per_device_batch`` rows per device, and the
+    micro-batcher stays the one dispatch site.  The encode is row-local, so
+    the rows equal the single-device encode's.  With ``device="cpu"`` the
+    mesh is ``mesh_devices`` entries of the CPU.
+
+    The W8A8 mode is read once, here: the route serves K3 if
+    ``$PROTOCLIP_INT8`` is on now, and ``/healthz``'s ``int8`` says so
+    (``int8_weights_prequantized``: the weights carry load-time int8
+    layers).  ``clip=(cfg, params)`` injects a loaded model; otherwise
+    ``models.clip.load_clip(backbone, weights)`` resolves the weights.
+    """
+    import numpy as np
     import torch
 
-    device = torch.device(device)
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+    from protoclip_tpu_torch.io.export import make_encode_fn
+    from protoclip_tpu_torch.ops.kernels import int8_enabled
+    from protoclip_tpu_torch.parallel import make_mesh, make_sharded_encode, replicated
+    from protoclip_tpu_torch.toolkit.microbatch import MicroBatcher
+
+    if per_device_batch < 1:
+        raise ValueError(f"per_device_batch must be >= 1, got {per_device_batch}")
+    if clip is None and not backbone:
+        raise ValueError("mesh encode mode needs --backbone (or clip=)")
+    device = torch.device("cuda" if device is None else device)
+    mesh = make_mesh(mesh_devices, devices=None if device.type == "cuda" else
+                     [device] * (mesh_devices or 1))
+    if clip is not None:
+        cfg, params = clip
+    else:
+        from protoclip_tpu_torch.models.clip import load_clip
+
+        cfg, params = load_clip(backbone, weights, dtype=torch.bfloat16, device=mesh.device)
+    batch = per_device_batch * mesh.size
+    n_px = cfg.image_resolution
+    int8 = int8_enabled()
+    prequantized = any(isinstance(params.get(tower), dict) and "blocks_q" in params[tower]
+                       for tower in ("visual", "text"))
+
+    encode = make_sharded_encode(make_encode_fn(cfg, int8=int8), mesh)
+    replicas = replicated(mesh).put(params)
+
+    def run(block: np.ndarray) -> np.ndarray:
+        return encode(replicas, block).cpu().numpy()
+
+    if warmup:
+        run(np.zeros((batch, n_px, n_px, 3), np.uint8))
+
+    pool = pool if pool is not None else _make_pool()
+    batcher = MicroBatcher(
+        run, batch, (n_px, n_px, 3), np.uint8,
+        max_wait_s=max(0.0, coalesce_ms) / 1e3,
+        # one fixed global shape: every shard's batch stays the same
+        trim_underfull=False,
+    )
+
+    def route(payload: dict) -> dict:
+        block = _preprocess_block(payload, n_px, pool, fast_decode)
+        return {"features": batcher.submit(block).tolist()}
+
+    route.pool = pool
+    route.batcher = batcher
+    info = {
+        "mode": "encode",
+        "backbone": cfg.name,
+        "mesh_devices": int(mesh.size),
+        "per_device_batch": int(per_device_batch),
+        "batch_size": int(batch),
+        "image_resolution": int(n_px),
+        "int8": bool(int8),
+        "int8_weights_prequantized": bool(prequantized),
+        "device": str(mesh.device),
+        "coalesce_ms": max(0.0, coalesce_ms),
+        "fast_decode": bool(fast_decode),
+    }
+    return route, info
 
 
 def make_encode_route(
@@ -196,6 +285,7 @@ def make_classify_route(
     probability in its last bits (top-k ids unchanged)."""
     import numpy as np
 
+    from protoclip_tpu_torch.parallel.sharding import _on_device
     from protoclip_tpu_torch.toolkit.microbatch import MicroBatcher
 
     n_px = classifier.clip_cfg.image_resolution
@@ -476,10 +566,20 @@ def build_server(
     coalesce_ms: float = 5.0,
     fast_decode: bool = False,
     device=None,
+    mesh_devices: Optional[int] = None,
+    backbone: Optional[str] = None,
+    weights: Optional[str] = None,
+    per_device_batch: int = 32,
+    clip=None,
 ) -> ThreadingHTTPServer:
     """Construct (not start) the server; ``port=0`` picks a free port.
-    /encode serves ``bundle``, loaded onto ``device`` (default: the card);
-    /classify serves ``classifier`` on its own device."""
+    /encode serves exactly one of ``bundle``, loaded onto ``device``
+    (default: the card), or the mesh mode (``mesh_devices``/``backbone``/
+    ``clip``: :func:`make_mesh_encode_route`); /classify serves
+    ``classifier`` on its own device."""
+    mesh_mode = mesh_devices is not None or clip is not None or backbone is not None
+    if bundle is not None and mesh_mode:
+        raise ValueError("--bundle and mesh encode mode both serve /encode; pick one")
     routes, infos = {}, {}
     # one preprocess pool for the whole server: per-route pools would
     # oversubscribe the host with 2x cpu_count threads in dual mode
@@ -488,6 +588,12 @@ def build_server(
         routes["/encode"], infos["encode"] = make_encode_route(
             bundle, warmup=warmup, coalesce_ms=coalesce_ms,
             fast_decode=fast_decode, pool=pool, device=device,
+        )
+    elif mesh_mode:
+        routes["/encode"], infos["encode"] = make_mesh_encode_route(
+            backbone=backbone, weights=weights, mesh_devices=mesh_devices,
+            per_device_batch=per_device_batch, warmup=warmup, coalesce_ms=coalesce_ms,
+            fast_decode=fast_decode, pool=pool, clip=clip, device=device,
         )
     if classifier is not None:
         routes["/classify"], infos["classify"] = make_classify_route(
@@ -590,8 +696,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8421)
     parser.add_argument("--bundle", help="serving bundle dir (/encode)")
-    parser.add_argument("--mesh", type=int, nargs="?", const=0, default=None, metavar="N",
-                        help=f"(not ported: {MULTI_GPU})")
+    parser.add_argument(
+        "--mesh", type=int, nargs="?", const=0, default=None, metavar="N",
+        help="mesh encode mode (/encode): live data-parallel encode over the first N "
+        "devices (bare --mesh = every card); needs --backbone; mutually exclusive with "
+        "--bundle; int8 via $PROTOCLIP_INT8",
+    )
+    parser.add_argument("--backbone", help="CLIP backbone for --mesh (e.g. 'ViT-B/16'); "
+                        "weights resolve via --weights / $PROTOCLIP_WEIGHTS_DIR")
+    parser.add_argument("--weights", help="explicit weights path for --mesh")
+    parser.add_argument("--per-device-batch", type=int, default=32,
+                        help="mesh mode: batch rows per device (global batch = N x this)")
     parser.add_argument("--config", help="experiment YAML (/classify)")
     parser.add_argument("--splits", help="split JSON for the id->name map")
     parser.add_argument("--memory_bank_v")
@@ -626,10 +741,13 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit(f"--mesh is not ported yet; it comes with {MULTI_GPU}")
-    if not args.bundle and not args.config:
-        parser.error("provide --bundle (encode mode) and/or --config (classify mode)")
+    mesh_mode = args.mesh is not None
+    if not args.bundle and not mesh_mode and not args.config:
+        parser.error("provide --bundle or --mesh (encode mode) and/or --config (classify mode)")
+    if mesh_mode and args.bundle:
+        parser.error("--bundle and --mesh both serve /encode; pick one")
+    if mesh_mode and not args.backbone:
+        parser.error("--mesh needs --backbone")
 
     classifier = None
     if args.config:
@@ -650,6 +768,9 @@ def main(argv=None) -> None:
         args.host, args.port, bundle=args.bundle, classifier=classifier,
         warmup=not args.no_warmup, coalesce_ms=args.coalesce_ms,
         fast_decode=args.fast_decode, device=args.device,
+        mesh_devices=(args.mesh or None) if mesh_mode else None,
+        backbone=args.backbone if mesh_mode else None,
+        weights=args.weights, per_device_batch=args.per_device_batch,
     )
     host, port = server.server_address[:2]
     routes = sorted(server.RequestHandlerClass.routes)

@@ -21,6 +21,11 @@ def top_k_accuracy(scores, labels, k: int = 1) -> float:
     return float(hit.mean() * 100.0)
 
 
+def accuracy_from_probs(p, labels) -> float:
+    """Fraction of rows whose argmax is the label."""
+    return float(np.mean(np.argmax(_host(p), axis=-1) == _host(labels)))
+
+
 def _host(x) -> np.ndarray:
     """A tensor on any device, or an array, as a host numpy array."""
     if hasattr(x, "detach"):

@@ -20,10 +20,12 @@ too.
 from __future__ import annotations
 
 import collections
+import contextlib
 import io
 import os
 import pickle
-from typing import Any, Dict, Tuple
+import uuid
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -157,13 +159,31 @@ def load_checkpoint_triple(path_v, path_t: str, path_a
     return bank_v, bank_t, adapter
 
 
+@contextlib.contextmanager
+def replace_atomically(path: str) -> Iterator[str]:
+    """Yield a tmp name beside ``path`` that only this writer uses, and on
+    success rename the file written there onto ``path``: a crash leaves no
+    torn file, and the ranks of a mesh run, which write the same files,
+    never write into one tmp file.  A leftover tmp file is removed."""
+    tmp = f"{path}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    try:
+        yield tmp
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+
+
 def save_checkpoint_triple(path_v: str, path_t: str, path_a: str, bank_v, bank_t,
                            adapter_state: Dict[str, Any], dtype: str = "float16") -> None:
     """Write a reference-compatible ``_v/_t/_a`` triple with ``torch.save``,
     stored in ``dtype`` (fp16, as the reference's half-precision model
-    stores it).  Each file goes to a tmp name and is renamed into place, so
-    a crash leaves no torn file, and a ``.npz`` sidecar that a torch-less
-    JAX host left at the same path is removed, so one generation remains."""
+    stores it).  Each file is written through :func:`replace_atomically`,
+    and a ``.npz`` sidecar that a torch-less JAX host left at the same path
+    is removed, so one generation remains."""
     np_dtype = np.dtype(dtype)
 
     def tensor(x):
@@ -176,8 +196,7 @@ def save_checkpoint_triple(path_v: str, path_t: str, path_a: str, bank_v, bank_t
     )
     for path, obj in payloads:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = path + ".tmp"
-        torch.save(obj, tmp)
-        os.replace(tmp, path)
+        with replace_atomically(path) as tmp:
+            torch.save(obj, tmp)
         if os.path.exists(path + ".npz"):
             os.remove(path + ".npz")

@@ -21,13 +21,18 @@ from __future__ import annotations
 import os
 import sys
 import time
-import uuid
 import zipfile
 from typing import Dict, Optional
 
 import numpy as np
 
-from protoclip_tpu_torch.io.checkpoint import beautify, load_pkl, load_pt, model_dir_root
+from protoclip_tpu_torch.io.checkpoint import (
+    beautify,
+    load_pkl,
+    load_pt,
+    model_dir_root,
+    replace_atomically,
+)
 
 
 class FeatureCache:
@@ -88,17 +93,9 @@ class FeatureCache:
         never write into one tmp file."""
         path = self._npz_path(stem)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
-        try:
-            with open(tmp, "wb") as fh:  # a file handle: savez must not append .npz
-                np.savez(fh, **arrays)
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                try:
-                    os.remove(tmp)
-                except OSError:
-                    pass
+        # a file handle: savez must not append .npz
+        with replace_atomically(path) as tmp, open(tmp, "wb") as fh:
+            np.savez(fh, **arrays)
 
     # -- named artifacts (the reference's stems) ----------------------------
 

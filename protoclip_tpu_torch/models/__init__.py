@@ -2,7 +2,9 @@
 
 Linear weights are stored input-major (``y = x @ w + b``), transposed
 relative to ``torch.nn.Linear``; transformer blocks are a list of per-layer
-dicts with the fused ``wqkv``.
+dicts with the fused ``wqkv``.  ``multi_head_attention`` here is the
+reference encoder's (``models/encoder.py``), as in the JAX package, not the
+towers' (``ops/attention.py``).
 """
 
 from protoclip_tpu_torch.models.adapters import (
@@ -14,6 +16,7 @@ from protoclip_tpu_torch.models.adapters import (
 from protoclip_tpu_torch.models.clip import (
     BACKBONE_CONFIGS,
     CLIPConfig,
+    available_backbones,
     cast_params,
     clip_forward,
     convert_clip_state_dict,
@@ -25,6 +28,12 @@ from protoclip_tpu_torch.models.clip import (
     params_from_jax,
     quantize_for_serving,
 )
+from protoclip_tpu_torch.models.encoder import (
+    encoder_apply,
+    encoder_from_torch_state,
+    init_encoder,
+    multi_head_attention,
+)
 
 __all__ = [
     "adapter_from_torch_state",
@@ -33,6 +42,7 @@ __all__ = [
     "init_adapter",
     "BACKBONE_CONFIGS",
     "CLIPConfig",
+    "available_backbones",
     "cast_params",
     "clip_forward",
     "convert_clip_state_dict",
@@ -43,4 +53,8 @@ __all__ = [
     "load_clip",
     "params_from_jax",
     "quantize_for_serving",
+    "encoder_apply",
+    "encoder_from_torch_state",
+    "init_encoder",
+    "multi_head_attention",
 ]

@@ -86,6 +86,10 @@ BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
 }
 
 
+def available_backbones() -> list:
+    return list(BACKBONE_CONFIGS)
+
+
 # -- apply ------------------------------------------------------------------
 
 
@@ -131,7 +135,10 @@ def init_clip_params(rng: np.random.Generator, cfg: CLIPConfig,
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32))
+    # a C-ordered copy whatever the source's layout (a transposed view keeps
+    # its F order under np.array's default): the card's kernels take
+    # contiguous weights
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
 
 
 def _ln(scale, bias) -> Dict[str, torch.Tensor]:
@@ -489,14 +496,29 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
     """Load a CLIP backbone onto ``device`` (default: the card).
 
     Resolution order: explicit ``weights_path`` -> ``$PROTOCLIP_WEIGHTS_DIR``
-    / ``~/.cache/clip`` -> random initialization from the numpy ``seed``
+    / ``~/.cache/clip`` -> with ``$PROTOCLIP_AUTO_DOWNLOAD`` on, the pinned
+    release (``io/download.py``; a failed checksum raises, any other
+    failure falls through) -> random initialization from the numpy ``seed``
     (with a warning on stderr: classification then carries no semantics),
-    unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  There is no download.
-    With ``$PROTOCLIP_INT8`` on, the transformer stacks are quantized once
-    here, from the weights in ``dtype`` (:func:`quantize_for_serving`).
+    unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  With
+    ``$PROTOCLIP_INT8`` on, the transformer stacks are quantized once here,
+    from the weights in ``dtype`` (:func:`quantize_for_serving`).
     """
     dev = resolve_device(device)
     path = weights_path or find_weights(backbone)
+    if path is None and os.environ.get("PROTOCLIP_AUTO_DOWNLOAD", "0").lower() in (
+            "1", "true", "on"):
+        # opt-in: deployments without egress must not stall on timeouts
+        from protoclip_tpu_torch.io.download import MODEL_URLS, ChecksumError, download_weights
+
+        if backbone in MODEL_URLS:
+            try:
+                path = download_weights(backbone)
+            except ChecksumError:
+                raise  # a tampered or corrupt artifact: never serve random weights
+            except Exception as exc:  # noqa: BLE001 — network-dependent
+                print(f"[protoclip_tpu_torch] weight download failed ({exc}); "
+                      "falling back to random init", file=sys.stderr)
     if path is not None:
         cfg, params = convert_clip_state_dict(load_state_dict(path))
         return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev))

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from protoclip_tpu_torch.ops.activations import quick_gelu
-from protoclip_tpu_torch.ops.attention import multi_head_attention
+from protoclip_tpu_torch.ops.attention import _causal_mask, multi_head_attention
 from protoclip_tpu_torch.ops.kernels import (
     fused_transformer_block,
     fused_transformer_block_int8,
@@ -106,3 +106,9 @@ def init_block_params(rng: np.random.Generator, n_layers: int, width: int,
         }
         for _ in range(n_layers)
     ]
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """Additive causal mask (ref ``clip/model.py:326-332``): (L, L) fp32,
+    ``-inf`` above the diagonal."""
+    return _causal_mask(length, device)

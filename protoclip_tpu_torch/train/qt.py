@@ -9,6 +9,13 @@ hot loop crosses the CLIP encoder: on the card every step runs K2 (or K3
 under ``$PROTOCLIP_INT8``) on each layer of the image tower.  The encode
 has no backward and needs none: the CLIP parameters are outside the
 optimizer.
+
+With a ``mesh`` (``parallel.make_mesh``) the frozen encode, the only large
+part of the step, shards the global batch over the mesh; the gathered
+(B, d) features then go through the adapter, ``P``, the loss and AdamW on
+the mesh's first device, the same on every process
+(``parallel.shard_qt_step``): the loss of the whole global batch, as JAX's
+sharded step computes it, with no gradient all-reduce.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from protoclip_tpu_torch.data.transforms import normalize_batch
 from protoclip_tpu_torch.device import DeviceLike
 from protoclip_tpu_torch.models.clip import CLIPConfig, encode_image
+from protoclip_tpu_torch.parallel import Mesh, process_device, replicated, shard_qt_step
 from protoclip_tpu_torch.train.episodic import BankTrainer
 from protoclip_tpu_torch.train.optim import set_lr
 
@@ -30,10 +38,12 @@ from protoclip_tpu_torch.train.optim import set_lr
 class QTTrainer(BankTrainer):
     """Q^T trainer; feed batches through :meth:`train_step`.
 
-    ``clip_params`` must lie on ``device``; ``compute_dtype`` is the pixel
-    normalization's dtype, the one the bank and eval encodes use, so a query
-    feature matches the cached feature of the same image.  ``adapter_init``
-    as in :class:`~protoclip_tpu_torch.train.episodic.EpisodicTrainer`.
+    ``clip_params`` must lie on ``device`` (with a ``mesh``: on its first
+    device, which then holds the state; ``device`` may be left unset);
+    ``compute_dtype`` is the pixel normalization's dtype, the one the bank
+    and eval encodes use, so a query feature matches the cached feature of
+    the same image.  ``adapter_init`` as in
+    :class:`~protoclip_tpu_torch.train.episodic.EpisodicTrainer`.
     """
 
     clip_params: Dict
@@ -53,23 +63,44 @@ class QTTrainer(BankTrainer):
     compute_dtype: str = "bfloat16"
     device: DeviceLike = None
     adapter_init: Optional[Dict] = None
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
+        self.device = process_device(self.device, self.mesh)
         self._init_state(self.bank_v_init, self.bank_t_init)
         self._norm_dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+        self._mesh_step = None
+        if self.mesh is None:
+            self._weights = self.clip_params
+        else:
+            # the weights copied to the mesh's devices once, not per step
+            self._weights = replicated(self.mesh).put(self.clip_params)
+            self._mesh_step = shard_qt_step(self.step_on_features, self._encode_batch,
+                                            self.mesh)
+
+    def _encode_batch(self, clip_params, images_u8: torch.Tensor) -> torch.Tensor:
+        return encode_image(clip_params, normalize_batch(images_u8, self._norm_dtype),
+                            self.clip_cfg)
 
     def encode(self, images_u8: np.ndarray) -> torch.Tensor:
-        """The frozen tower's fp32 features of a uint8 (B, H, W, 3) batch."""
-        images = torch.from_numpy(np.ascontiguousarray(images_u8)).to(self.device)
+        """The frozen tower's fp32 features of a uint8 (B, H, W, 3) batch
+        (with a mesh: the global batch, sharded, gathered back)."""
+        images_u8 = np.ascontiguousarray(images_u8)
+        if self._mesh_step is not None:
+            return self._mesh_step.encode(self._weights, images_u8)
         with torch.no_grad():
-            feats = encode_image(self.clip_params, normalize_batch(images, self._norm_dtype),
-                                 self.clip_cfg)
-        return feats.float()
+            return self._encode_batch(self._weights,
+                                      torch.from_numpy(images_u8).to(self.device)).float()
 
     def train_step(self, images_u8: np.ndarray, labels: np.ndarray, n_valid: int) -> Dict[str, float]:
         """One step on a (possibly padded) batch: rows past ``n_valid`` carry
         weight 0.  Returns the loss, ``acc`` over the valid rows, the
-        learning rate and each loss term."""
+        learning rate and each loss term.  With a mesh the batch is the
+        global batch, the same on every process, its size a multiple of the
+        mesh."""
+        if self._mesh_step is not None:
+            return self._mesh_step(self._weights, np.ascontiguousarray(images_u8), labels,
+                                   n_valid)
         return self.step_on_features(self.encode(images_u8), labels, n_valid)
 
     def step_on_features(self, zq_frozen: torch.Tensor, labels: np.ndarray,

@@ -19,6 +19,7 @@ from protoclip_tpu_torch.data.transforms import TrainTransform
 from protoclip_tpu_torch.device import DeviceLike
 from protoclip_tpu_torch.io.checkpoint import checkpoint_paths
 from protoclip_tpu_torch.obs.logging import MetricLogger
+from protoclip_tpu_torch.parallel import mesh_batch
 from protoclip_tpu_torch.train.qt import QTTrainer
 from protoclip_tpu_torch.train.runner import (
     TERM_TAGS,
@@ -31,14 +32,16 @@ from protoclip_tpu_torch.train.runner import (
 
 
 def run_qt(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = None,
-           device: DeviceLike = None) -> ExperimentResult:
+           device: DeviceLike = None, mesh=None) -> ExperimentResult:
     """Run one Proto-CLIP-F-Q^T experiment on ``device`` (default: the
-    card); the best triple goes under ``best-alpha-beta/``."""
+    card); the best triple goes under ``best-alpha-beta/``.  With a
+    ``mesh`` the encodes and every step's frozen encode shard over it
+    (``train/qt.py``)."""
     cfg.validate()
     own_logger = logger is None
     logger = logger or MetricLogger(os.path.join(cfg.logs_dir_path, f"{cfg.dataset}-qt"))
     try:
-        setup = prepare_experiment(cfg, progress, device)
+        setup = prepare_experiment(cfg, progress, device, mesh)
         # the reference's Q^T flow runs the same zero-shot phase before
         # training (main.qt.py:109-183)
         zs = zero_shot_sweep_phase(cfg, setup, logger, progress)
@@ -49,9 +52,10 @@ def run_qt(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = 
         if not cfg.only_test:
             n_px = setup.clip_cfg.image_resolution
             # shuffled and augmented, re-encoded at every step (ref
-            # main.qt.py:456-468); the batch is clamped to the train set
-            loader = BatchLoader(setup.dataset.train_x,
-                                 batch_size=min(cfg.batch_size, len(setup.dataset.train_x)),
+            # main.qt.py:456-468); the batch is clamped to the train set,
+            # then rounded up to a multiple of the mesh
+            batch_size = mesh_batch(min(cfg.batch_size, len(setup.dataset.train_x)), mesh)
+            loader = BatchLoader(setup.dataset.train_x, batch_size=batch_size,
                                  transform=TrainTransform(n_px), shuffle=True, seed=cfg.seed,
                                  image_size=n_px)
             trainer = QTTrainer(
@@ -61,6 +65,7 @@ def run_qt(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = 
                 alpha=alpha, beta=beta, lr=cfg.lr, train_epoch=cfg.train_epoch,
                 losses=tuple(cfg.losses), train_vis_mem_only=cfg.train_vis_mem_only,
                 seed=cfg.seed, compute_dtype=cfg.compute_dtype, device=setup.device,
+                mesh=mesh,
             )
 
             def run_epoch(epoch: int) -> Dict[str, float]:

@@ -25,7 +25,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from protoclip_tpu_torch.io.checkpoint import load_pkl
+from protoclip_tpu_torch.io.checkpoint import load_pkl, replace_atomically
 from protoclip_tpu_torch.train.episodic import named_leaves
 
 _MOMENTS = ("exp_avg", "exp_avg_sq")
@@ -41,8 +41,9 @@ def _tree_to_host(tree: Dict) -> Dict:
 
 def save_train_state(path: str, trainer, extra: Dict[str, Any] | None = None) -> None:
     """Snapshot a trainer (EpisodicTrainer or QTTrainer) to ``path``,
-    atomically (a tmp file renamed into place).  ``extra``: a small payload
-    of plain containers the runner wants back on resume."""
+    atomically (:func:`~protoclip_tpu_torch.io.checkpoint.replace_atomically`).
+    ``extra``: a small payload of plain containers the runner wants back on
+    resume."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     optimizer: Dict[str, Dict[str, np.ndarray]] = {}
     for name, p in named_leaves(trainer.params):
@@ -58,10 +59,8 @@ def save_train_state(path: str, trainer, extra: Dict[str, Any] | None = None) ->
         "kind": type(trainer).__name__,
         "extra": dict(extra or {}),
     }
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as fh:
+    with replace_atomically(path) as tmp, open(tmp, "wb") as fh:
         pickle.dump(state, fh, protocol=pickle.HIGHEST_PROTOCOL)
-    os.replace(tmp, path)
 
 
 def _check_like(what: str, saved: np.ndarray, cur: torch.Tensor) -> None:

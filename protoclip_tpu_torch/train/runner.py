@@ -56,25 +56,47 @@ from protoclip_tpu_torch.models import (
     load_clip,
 )
 from protoclip_tpu_torch.obs.logging import MetricLogger
+from protoclip_tpu_torch.parallel import (
+    make_sharded_encode,
+    mesh_batch,
+    process_device,
+    replicated,
+)
 from protoclip_tpu_torch.train.episodic import EpisodicTrainer
 
 
-def make_encode_fns(cfg: Config, device: DeviceLike = None):
+def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None):
     """Load CLIP onto ``device`` (default: the card) and return
     ``(encode_images, encode_texts, clip_cfg, clip_params)``.
 
     ``encode_images(images_u8)`` takes a uint8 numpy batch, normalizes it on
     the device and returns the (B, d) features there; ``encode_texts``
-    takes token ids.  Both run under ``torch.inference_mode``.
+    takes token ids.  Both run under ``torch.inference_mode``.  With a
+    ``mesh`` (``parallel.make_mesh``) the weights are loaded onto its first
+    device and copied once to the others, and image batches shard over the
+    mesh (their size a multiple of it) with the features gathered back onto
+    the first device; the text encode stays on the first device, as JAX's
+    stays unsharded.
     """
-    dev = resolve_device(device)
+    dev = process_device(device, mesh)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     clip_cfg, clip_params = load_clip(cfg.backbone, cfg.weights_path, dtype=dtype, device=dev)
 
+    def image(params, images_u8: torch.Tensor) -> torch.Tensor:
+        return encode_image(params, normalize_batch(images_u8, dtype), clip_cfg)
+
+    if mesh is None:
+        weights = clip_params
+
+        def run(params, images_u8: np.ndarray) -> torch.Tensor:
+            return image(params, torch.from_numpy(images_u8).to(dev))
+    else:
+        weights = replicated(mesh).put(clip_params)
+        run = make_sharded_encode(image, mesh)
+
     @torch.inference_mode()
     def encode_images(images_u8: np.ndarray) -> torch.Tensor:
-        images = normalize_batch(torch.from_numpy(images_u8).to(dev), dtype)
-        return encode_image(clip_params, images, clip_cfg)
+        return run(weights, images_u8)
 
     @torch.inference_mode()
     def encode_texts(tokens: np.ndarray) -> torch.Tensor:
@@ -115,22 +137,25 @@ class ExperimentSetup:
     device: torch.device
 
 
-def prepare_experiment(cfg: Config, progress: bool = True,
-                       device: DeviceLike = None) -> ExperimentSetup:
+def prepare_experiment(cfg: Config, progress: bool = True, device: DeviceLike = None,
+                       mesh=None) -> ExperimentSetup:
     """Load CLIP, build the dataset and loaders, and materialize the memory
-    banks and eval features (cached)."""
-    dev = resolve_device(device)
-    encode_fn, text_fn, clip_cfg, clip_params = make_encode_fns(cfg, dev)
+    banks and eval features (cached).  With a ``mesh`` the image encodes
+    shard over it (:func:`make_encode_fns`) and everything else runs on its
+    first device."""
+    dev = process_device(device, mesh)
+    encode_fn, text_fn, clip_cfg, clip_params = make_encode_fns(cfg, dev, mesh)
     cache = FeatureCache(cfg.cache_dir, cfg.backbone, cfg.shots)
     dataset = build_dataset(cfg.dataset, cfg.root_path, cfg.shots, seed=cfg.seed)
     n_px = clip_cfg.image_resolution
+    batch_size = mesh_batch(cfg.batch_size, mesh)
 
-    train_loader = BatchLoader(dataset.train_x, batch_size=cfg.batch_size,
+    train_loader = BatchLoader(dataset.train_x, batch_size=batch_size,
                                transform=TrainTransform(n_px), shuffle=False, seed=cfg.seed,
                                image_size=n_px)
-    val_loader = BatchLoader(dataset.val, batch_size=cfg.batch_size,
+    val_loader = BatchLoader(dataset.val, batch_size=batch_size,
                              transform=EvalTransform(n_px), shuffle=False, image_size=n_px)
-    test_loader = BatchLoader(dataset.test, batch_size=cfg.batch_size,
+    test_loader = BatchLoader(dataset.test, batch_size=batch_size,
                               transform=EvalTransform(n_px), shuffle=False, image_size=n_px)
 
     bank_v, bank_values = build_visual_memory_bank(
@@ -419,17 +444,24 @@ def fit(cfg: Config, trainer, setup: ExperimentSetup, paths, logger: MetricLogge
 
 
 def run(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = None,
-        device: DeviceLike = None) -> ExperimentResult:
+        device: DeviceLike = None, mesh=None) -> ExperimentResult:
     """Run one Proto-CLIP experiment from a config, on ``device`` (default:
     the card): prepare, the zero-shot sweep, the episodic Proto-CLIP-F
     trainer (unless ``cfg.only_test``) and the test of the best triple at
-    the config's operating point.  Training runs on one device: an episode
-    is an AdamW step over at most a few thousand d-dim rows."""
+    the config's operating point.
+
+    With a ``mesh`` the encodes (bank build, val/test features) shard their
+    batches over it.  Episodic training runs on the mesh's first device on
+    purpose, as in the JAX package: an episode is one AdamW step over at most
+    a few thousand d-dim rows (adapter and bank gathers, no CLIP forward),
+    far too little work to share.  The F-Q^T trainer
+    (``train/qt_runner.py``), whose step crosses the image tower, shards
+    its batches."""
     cfg.validate()
     own_logger = logger is None
     logger = logger or MetricLogger(os.path.join(cfg.logs_dir_path, cfg.dataset))
     try:
-        setup = prepare_experiment(cfg, progress, device)
+        setup = prepare_experiment(cfg, progress, device, mesh)
         zs = zero_shot_sweep_phase(cfg, setup, logger, progress)
         # the reference overrides the searched HPs with the config's
         # (main.py:213-214): training and the test run at the tuned point
@@ -438,6 +470,9 @@ def run(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = Non
                                  cfg.lr, cfg.augment_epoch, cfg.train_epoch)
         best_val, best_epoch = 0.0, -1
         if not cfg.only_test:
+            if mesh is not None and progress:
+                print("[mesh] episodic training runs on one device by design (episodes are "
+                      "tiny adapter/bank steps); the encode phases were sharded over the mesh")
             trainer = EpisodicTrainer(
                 frozen_keys=setup.bank_v, bank_t_init=setup.bank_t,
                 n_class=setup.dataset.num_classes, k_shots=cfg.shots, adapter_kind=cfg.adapter,

@@ -756,3 +756,72 @@ def test_cuda_bundle_capture_failure_raises(cuda_device, tmp_path, monkeypatch):
     monkeypatch.setattr(export, "make_encode_fn", real)
     enc = export.load_serving_bundle(path, device=cuda_device)  # the card still captures
     assert enc(np.zeros((2, 32, 32, 3), np.uint8)).shape == (2, 64)
+
+
+def _mesh_clip(device, dtype):
+    from protoclip_tpu_torch.models.clip import cast_params, to_device
+    from protoclip_tpu_torch.parallel import dryrun
+
+    cfg, params = dryrun._tiny_clip("cpu")
+    return cfg, to_device(cast_params(params, dtype), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_mesh_encode_matches_unsharded(cuda_device, monkeypatch, int8):
+    """A mesh of one card encodes bit for bit as the unsharded encode (K2,
+    or K3 in the int8 mode, once a layer); two shards on the one card
+    (``make_mesh(devices=[cuda:0, cuda:0])``) keep a row cosine >= 0.99999."""
+    from protoclip_tpu_torch.io.export import make_encode_fn
+    from protoclip_tpu_torch.parallel import make_mesh, make_sharded_encode, replicated
+
+    cfg, params = _mesh_clip(cuda_device, torch.bfloat16)
+    encode = make_encode_fn(cfg, int8=int8)
+    images = np.random.default_rng(2).integers(0, 256, (16, 32, 32, 3), dtype=np.uint8)
+    ref = encode(params, torch.from_numpy(images).to(cuda_device))
+    for devices in ([cuda_device], [cuda_device, cuda_device]):
+        mesh = make_mesh(devices=devices)
+        sharded = make_sharded_encode(encode, mesh)
+        kernels.reset_launch_counts()
+        got = sharded(replicated(mesh).put(params), images)
+        counts = kernels.launch_counts()
+        block = "fused_transformer_block_int8" if int8 else "fused_transformer_block"
+        assert counts[block] == cfg.vision_layers * len(devices)
+        if len(devices) == 1:
+            assert torch.equal(got, ref)
+        else:
+            cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1)
+            assert float(cos.min()) >= 0.99999
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_nccl_one_rank_qt_step(cuda_device, tmp_path):
+    """One NCCL rank (``init_distributed`` over a ``file://`` rendezvous):
+    the sharded Q^T step equals the unsharded step bit for bit, and the
+    NCCL all_gather of one rank returns the rows."""
+    import torch.distributed as dist
+
+    from protoclip_tpu_torch.parallel import init_distributed, make_mesh
+    from protoclip_tpu_torch.parallel.sharding import _all_gather_rows
+    from protoclip_tpu_torch.train.episodic import named_leaves
+    from protoclip_tpu_torch.train.qt import QTTrainer
+
+    cfg, params = _mesh_clip(cuda_device, torch.bfloat16)
+    keys, bank_t = _train_problem(n_class=4, k_shots=2, d=32)
+    args = dict(clip_params=params, clip_cfg=cfg, bank_v_init=keys, bank_t_init=bank_t,
+                n_class=4, k_shots=2, adapter_kind="fc", alpha=0.5, beta=5.0, lr=1e-3,
+                train_epoch=4)
+    images = np.random.default_rng(3).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    labels = np.asarray([0, 1, 2, 3, 0, 1, 2, 3])
+    assert init_distributed(f"file://{tmp_path / 'rendezvous'}", 1, 0) is False
+    try:
+        assert dist.get_backend() == "nccl"
+        meshed = QTTrainer(mesh=make_mesh(), **args)
+        alone = QTTrainer(device=cuda_device, **args)
+        feats = meshed.encode(images)
+        assert torch.equal(_all_gather_rows(feats), feats)
+        assert meshed.train_step(images, labels, 8) == alone.train_step(images, labels, 8)
+        for (name, a), (_, b) in zip(named_leaves(meshed.params), named_leaves(alone.params)):
+            assert torch.equal(a, b), name
+    finally:
+        dist.destroy_process_group()

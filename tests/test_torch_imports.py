@@ -53,7 +53,9 @@ def test_port_has_files():
                    "toolkit/speech.py", "toolkit/ros_utils.py", "toolkit/ros_nodes.py",
                    "cli/ood.py", "cli/tsne.py", "cli/transcribe.py", "cli/ros_node.py",
                    "toolkit/microbatch.py", "obs/profiler.py", "io/export.py", "cli/export.py",
-                   "cli/serve.py", "client.py", "native/__init__.py"):
+                   "cli/serve.py", "client.py", "native/__init__.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/sharding.py", "parallel/dryrun.py",
+                   "models/encoder.py", "io/download.py"):
         assert "protoclip_tpu_torch/" + module in rel, module
     assert (REPO / "protoclip_tpu_torch" / "native" / "preprocess.cpp").is_file()
 

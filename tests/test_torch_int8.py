@@ -548,9 +548,17 @@ def test_extract_cli_needs_the_card_unless_told_cpu(tiny_weights, image_tree, tm
     args = ["--weights", tiny_weights, "--input", image_tree, "--out", str(tmp_path / "f.npz")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _run_cli(main, monkeypatch, args)
-    with pytest.raises(SystemExit):  # --mesh comes with the multi-GPU slice
-        _run_cli(main, monkeypatch, [*args, "--mesh", "2", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):  # a mesh of cards too
+        _run_cli(main, monkeypatch, [*args, "--mesh", "2"])
     assert not (tmp_path / "f.npz").exists()
+    # told cpu, --mesh 2 runs on two CPU shards, each row as the unsharded
+    # run's at the same per-shard batch
+    _run_cli(main, monkeypatch, [*args, "--mesh", "2", "--device", "cpu", "--batch", "4"])
+    files_meshed, meshed = _load(tmp_path / "f.npz")
+    _run_cli(main, monkeypatch, [*args, "--device", "cpu", "--batch", "2"])
+    files, single = _load(tmp_path / "f.npz")
+    assert files_meshed == files
+    np.testing.assert_array_equal(meshed, single)
 
 
 def test_preprocess_copy_matches_jax(image_tree):

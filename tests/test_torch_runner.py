@@ -215,19 +215,38 @@ def test_cli_only_test_prints_the_result_line(env, capsys):
     )
 
 
-def test_training_and_later_flags_raise(env, tmp_path):
+def test_training_and_later_flags_raise(env, tmp_path, capsys, monkeypatch):
     """Training, --qt, --resume and --snapshot_every are ported (see
-    tests/test_torch_train_runner.py); only --mesh and --multihost still
-    exit, naming ROADMAP queue 1 item 7, and the default device (the card)
-    raises where CUDA is absent, training or not."""
+    tests/test_torch_train_runner.py), and so are --mesh and --multihost:
+    ``--mesh 8 --device cpu`` trains on an 8-entry CPU mesh and prints the
+    RESULT line, and --multihost without a cluster exits with the JAX
+    CLI's messages.  The default device (the card) raises where CUDA is
+    absent, training or not."""
     if not torch.cuda.is_available():
         for only_test in (True, False):
             cfg = configs(env, "tiny", "train_tree", only_test=only_test)[0]
             with pytest.raises(RuntimeError, match="CUDA is not available"):
                 runner.run(cfg, progress=False)
+    cfg = configs(env, "tiny", "mesh_tree")[0]
     yml = tmp_path / "c.yml"
-    yml.write_text("dataset: 'caltech101'\n")
-    for flag in (["--mesh", "4"], ["--multihost"]):
-        for mode in ([], ["--only_test"], ["--qt"]):
-            with pytest.raises(SystemExit, match="queue 1 item 7"):
-                cli.main(["--config", str(yml), "--device", "cpu"] + mode + flag)
+    yml.write_text("\n".join([
+        "dataset: 'caltech101'", "shots: 2", "backbone: 'tiny'", "lr: 0.001",
+        "augment_epoch: 2", "train_epoch: 1", "alpha: 0.5", "beta: 5.0", "adapter: 'fc'",
+        "compute_dtype: 'float32'", "batch_size: 6", f"cache_root: '{cfg.cache_root}'",
+    ]) + "\n")
+    argv = ["--config", str(yml), "--root_path", env["root"], "--weights_path",
+            env["weights"]["tiny"], "--logs", cfg.logs_dir_path, "--device", "cpu"]
+    for mode in ([], ["--qt"]):
+        cli.main(argv + mode + ["--mesh", "8"])
+        assert capsys.readouterr().out.splitlines()[-1].startswith(
+            "RESULT dataset=caltech101 test_acc_fixed=")
+    for var in ("PROTOCLIP_COORDINATOR", "PROTOCLIP_NUM_PROCESSES", "PROTOCLIP_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    for mode in ([], ["--only_test"], ["--qt"]):
+        with pytest.raises(SystemExit, match="--multihost: no cluster found"):
+            cli.main(argv + mode + ["--multihost", "--mesh", "4"])
+    monkeypatch.setenv("PROTOCLIP_COORDINATOR", "127.0.0.1:1")
+    with pytest.raises(SystemExit, match="--multihost: init_distributed: explicit cluster "
+                                         "config is incomplete"):
+        cli.main(argv + ["--multihost"])

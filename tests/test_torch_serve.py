@@ -440,13 +440,17 @@ def test_server_close_waits_for_accepted_but_unparsed_request(server):
         sock.close()
 
 
-def test_cli_sigterm_graceful_shutdown_and_mesh_exit(server):
+def test_cli_sigterm_graceful_shutdown_and_mesh_exit(server, capsys):
     """``python -m protoclip_tpu_torch.cli.serve --device cpu`` answers and
-    exits 0 on SIGTERM; ``--mesh`` exits naming the multi-GPU slice."""
+    exits 0 on SIGTERM; ``--bundle`` with ``--mesh`` exits with the JAX
+    CLI's "pick one" refusal, and ``--mesh`` without ``--backbone`` too."""
     from protoclip_tpu_torch.cli.serve import main
 
-    with pytest.raises(SystemExit, match="queue 1 item 7"):
-        main(["--bundle", server[1], "--mesh", "2"])
+    for argv, message in ((["--bundle", server[1], "--mesh", "2"], "pick one"),
+                          (["--mesh", "2"], "--mesh needs --backbone")):
+        with pytest.raises(SystemExit):
+            main(argv)
+        assert message in capsys.readouterr().err
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
