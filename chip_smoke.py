@@ -105,25 +105,45 @@ Phases, one JSON line each on stdout:
              --mesh 1``, each bit for bit the direct call; images/s of the
              mesh encodes against the unsharded one (wiring cost on one
              card, not scaling).
-12. times  - each kernel (CUDA events around one call, and its device
+12. experiment - the port's validators through their own ``main()``s
+             (random weights, seed 0; the synthetic tokenizer):
+             ``scripts.validate_accuracy --only fewsol_198 --int8`` with the
+             shipped configs/fewsol_198.yml (only_test) on ViT-L/14 at full
+             width over a FewSOL-198-layout tree of 480 x 640 JPEGs (shots
+             16 -> 4, augment_epoch 10 -> 2, 2 val and 2 test a class; the
+             cuts listed as ``reduced``): no ERROR or skip row, K2 once a
+             layer an encode in bf16, K3 and no K2 in int8, both reruns from
+             the caches with no encode and no launch and the same
+             ``test_acc_fixed``, 8 val rows of each mode's cached features
+             against the fp32 CPU tower (cosine >= 0.999 / 0.995), the
+             zero-shot grid recomputed on the CPU (each cell's count off
+             the card's by at most its near ties under fp32 summation
+             order) and ``test_acc_fixed`` (within 1e-6); then ``scripts.validate_experiment`` at ViT-B/32:
+             a full ``run(only_test=False)`` and its ``only_test`` rerun.
+             Wall and bank-build seconds and images/s per mode, encode
+             calls, K2/K3 launches and the random-weight accuracies
+             (plumbing checks, not results).
+13. times  - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
              (images B=256, prompts B=1024) and at the classifier's ViT-L/14
              image block (B=16), and the encode rates in bf16 (K2) and int8
              (K3), and RN50's image encode in bf16.
-13. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+14. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
-             scripts/bench_block_variants.py) over every variant at the full
-             ViT-B/16 geometry (B=512, LP=200, 12 layers) and four at
-             ViT-L/14: ms per stack, checksum, twin, bound and launches; each
-             distinct chain held against its plain versions (the stack at
-             B=16, layer 0's block and int8s's attention core at the full
-             batch), twins held to their twin's checksum; then each of its
+             scripts/bench_block_variants.py) over one variant of each
+             distinct chain (23; the TPU script's schedule-only twins are
+             left out) at the full ViT-B/16 geometry (B=512, LP=200, 12
+             layers) and four at ViT-L/14: ms per stack, checksum, twin,
+             bound and launches; each chain held against its plain versions
+             (the stack at B=16, layer 0's block and int8s's attention core
+             at the full batch), a twin, where one is listed, held to its
+             twin's checksum; then each of its
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times), the int8 attention core
              also at ViT-L/14's (B=128, LP=264).
-14. kernels - the contract line: every ported kernel with the path or phase
+15. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches (by path, the runner's, the
              trainers' and the server's too, and per replay of each serving
              bucket's CUDA graph), error, times and bound.
@@ -191,10 +211,9 @@ def require(cond: bool, msg: str) -> None:
 
 
 def phase_device(torch):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    from protoclip_tpu_torch.scripts.validate_experiment import describe_device
+
+    smi = describe_device(torch.device("cuda", 0))["power_limit"]
     print(smi, flush=True)
     info = {
         "phase": "device",
@@ -1524,11 +1543,11 @@ OOD_CLASSES, OOD_PER_CLASS = 20, 4
 CLASSIFY_SPIN_CYCLES = 200_000_000
 
 
-def write_fewsol_checkpoint(torch, np, cfg, root):
+def write_fewsol_triple(torch, np, cfg):
     """A FewSOL-198-shaped ``_v/_t/_a`` triple in the config's cache tree
-    (198 classes x K = 16, d = ViT-L/14's 768, an fc adapter; unit rows
-    drawn from the seed), written with the port's save_checkpoint_triple,
-    and a 198-class split JSON.  Returns (triple paths, split path)."""
+    (198 classes x K, d = ViT-L/14's 768, the config's adapter; unit rows
+    drawn from the seed), written with the port's save_checkpoint_triple.
+    Returns its paths."""
     from protoclip_tpu_torch.io import checkpoint_paths, save_checkpoint_triple
     from protoclip_tpu_torch.models import BACKBONE_CONFIGS, adapter_to_torch_state, init_adapter
 
@@ -1540,6 +1559,13 @@ def write_fewsol_checkpoint(torch, np, cfg, root):
     save_checkpoint_triple(*paths, unit_rows(np, np_rng, TOOLKIT_N_CLASS * cfg.shots, d),
                            unit_rows(np, np_rng, TOOLKIT_N_CLASS, d),
                            adapter_to_torch_state(adapter, cfg.adapter))
+    return paths
+
+
+def write_fewsol_checkpoint(torch, np, cfg, root):
+    """:func:`write_fewsol_triple` (K = 16, an fc adapter) and a 198-class
+    split JSON.  Returns (triple paths, split path)."""
+    paths = write_fewsol_triple(torch, np, cfg)
     split = os.path.join(root, "fewsol_splits_198.json")
     rows = [[f"object_{c:03d}/{k}.png", c, f"object_{c:03d}"]
             for c in range(TOOLKIT_N_CLASS) for k in range(cfg.shots)]
@@ -2862,7 +2888,418 @@ def mesh_routes(torch, np, tmp, clip_cfg, params):
             "extract_rows": int(feats["mesh"].shape[0]), "extract_bit_identical": True}
 
 
-# -- 12. times ------------------------------------------------------------------------
+# -- 12. the validators: FewSOL-198's experiment through run(), ViT-B/32's full run ---------
+
+EXPERIMENT_CONFIG = TOOLKIT_CONFIG
+# the cuts of the shipped config: shots 16 -> 4, augment_epoch 10 -> 2, and
+# 2 val and 2 test JPEGs a class; ViT-L/14, 198 classes, alpha, beta, the
+# adapter and top-k stay as shipped
+EXPERIMENT_SHOTS, EXPERIMENT_AUGMENT, EXPERIMENT_EVAL = 4, 2, 2
+EXPERIMENT_CPU_ROWS = 8
+EXPERIMENT_COSINE = {"bf16": 0.999, "int8": 0.995}  # PERF.md section 2's bars
+EXPERIMENT_JPEG_THREADS = 8
+
+
+def write_fewsol_tree(np, data_root, shots, n_eval):
+    """FewSOL-198's layout (``data/registry.py``'s fewsol_198: JPEGs under
+    ``<root>/fewsol/data/`` and ``fewsol_splits_198.json`` in the dataset
+    dir): 198 class folders of 480 x 640 JPEGs, each a class colour plus
+    noise drawn from the seed, ``shots`` train and ``n_eval`` val and test
+    images a class.  Returns the number of JPEGs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    colours = np.random.default_rng(SEED).integers(0, 200, (TOOLKIT_N_CLASS, 3)).astype(np.uint8)
+    img_dir = os.path.join(data_root, "fewsol", "data")
+    rows = {"train": [], "val": [], "test": []}
+    jobs = []
+    for c in range(TOOLKIT_N_CLASS):
+        cname = f"object_{c:03d}"
+        os.makedirs(os.path.join(img_dir, cname))
+        for split, count in (("train", shots), ("val", n_eval), ("test", n_eval)):
+            for i in range(count):
+                rel = f"{cname}/{split}_{i}.jpg"
+                rows[split].append([rel, c, cname])
+                jobs.append((rel, c, len(jobs)))
+
+    def write(job):
+        rel, c, k = job
+        noise = np.random.default_rng([SEED, k]).integers(0, 56, (*FRAME_HW, 3), dtype=np.uint8)
+        Image.fromarray(colours[c] + noise).save(os.path.join(img_dir, rel), quality=95)
+
+    with ThreadPoolExecutor(EXPERIMENT_JPEG_THREADS) as pool:
+        list(pool.map(write, jobs))
+    with open(os.path.join(data_root, "fewsol", "fewsol_splits_198.json"), "w") as fh:
+        json.dump(rows, fh)
+    return len(jobs)
+
+
+@contextlib.contextmanager
+def recording_runs(torch, runs):
+    """Wrap ``train.runner.run`` for the validators, which call it: for each
+    run, the launch counts set to 0 just before it and read just after, its
+    image encode calls and rows and text encode calls, the visual bank
+    build's seconds and images (the card synchronized around it), the card
+    seconds of the image encode calls (CUDA events on the stream around each
+    call, summed: the tower's share; decode, collation and the host-to-card
+    copy lie outside them), in the bank build and in the whole run, and the
+    run's wall seconds, appended to ``runs``.  An encode call's rows include
+    the zero rows that pad the loader's last batch."""
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.train import runner
+
+    real = (runner.run, runner.encode_image, runner.encode_text,
+            runner.build_visual_memory_bank)
+    now = {}
+
+    def encode_image(params, images, cfg, **kwargs):
+        now["image_calls"] += 1
+        now["image_rows"] += int(images.shape[0])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real[1](params, images, cfg, **kwargs)
+        end.record()
+        now["image_events"].append((start, end))
+        return out
+
+    def card_s(events):
+        return sum(start.elapsed_time(end) for start, end in events) / 1e3
+
+    def encode_text(*args, **kwargs):
+        now["text_calls"] += 1
+        return real[2](*args, **kwargs)
+
+    def build_visual_memory_bank(encode_fn, loader, augment_epochs, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0, rows, calls = time.perf_counter(), now["image_rows"], len(now["image_events"])
+        out = real[3](encode_fn, loader, augment_epochs, *args, **kwargs)
+        torch.cuda.synchronize()
+        now["bank_s"] += time.perf_counter() - t0
+        now["bank_card_s"] += card_s(now["image_events"][calls:])
+        now["bank_rows"] += now["image_rows"] - rows
+        if now["image_rows"] > rows:  # the loader pads its last batch: count images
+            now["bank_images"] += loader.num_items * augment_epochs
+        return out
+
+    def run(cfg, *args, **kwargs):
+        now.clear()
+        now.update(image_calls=0, image_rows=0, text_calls=0, bank_s=0.0, bank_rows=0,
+                   bank_images=0, bank_card_s=0.0, image_events=[])
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = real[0](cfg, *args, **kwargs)
+        torch.cuda.synchronize()
+        wall_s, events = time.perf_counter() - t0, now.pop("image_events")
+        runs.append({"cfg": cfg, "int8": kwargs.get("int8"), "result": result, "wall_s": wall_s,
+                     "image_card_s": card_s(events), "launches": K.launch_counts(), **now})
+        return result
+
+    runner.run, runner.encode_image, runner.encode_text = run, encode_image, encode_text
+    runner.build_visual_memory_bank = build_visual_memory_bank
+    try:
+        yield runs
+    finally:
+        (runner.run, runner.encode_image, runner.encode_text,
+         runner.build_visual_memory_bank) = real
+
+
+@contextlib.contextmanager
+def shared_random_init(torch):
+    """``load_clip``'s random initialization drawn once per backbone and
+    generator state and shared by the loads inside the block: the stand-in
+    for the weights file a deployment reads, whose numpy draw (seconds for
+    ViT-L/14's 428M parameters on one host core) would otherwise repeat at
+    every run's load.  The weights are the same draws as without it."""
+    from protoclip_tpu_torch.models import clip
+
+    real, memo = clip.init_clip_params, {}
+
+    def init_clip_params(rng, cfg, dtype=torch.float32):
+        key = (repr(cfg), json.dumps(rng.bit_generator.state, sort_keys=True), str(dtype))
+        if key not in memo:
+            memo[key] = real(rng, cfg, dtype)
+        return memo[key]
+
+    clip.init_clip_params = init_clip_params
+    try:
+        yield
+    finally:
+        clip.init_clip_params = real
+
+
+def near_ties(np, logits_img, logits_txt, alphas, betas, eps):
+    """Per (alpha, beta) cell, the queries whose two best mixed scores
+    ``alpha softmax(beta l_img) + (1 - alpha) softmax(beta l_txt)`` (float64)
+    lie within what logits off by at most ``eps`` can swap: each score
+    then moves by a factor within exp(+-2 beta eps), so a relative margin
+    above 4 beta eps (+ 1e-6 for the fp32 softmax itself) cannot flip."""
+    def softmax(x):
+        e = np.exp(x - x.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+    l_img, l_txt = logits_img.astype(np.float64), logits_txt.astype(np.float64)
+    ties = np.zeros((len(alphas), len(betas)), np.int64)
+    for j, beta in enumerate(np.asarray(betas, np.float64)):
+        p_img, p_txt = softmax(beta * l_img), softmax(beta * l_txt)
+        for i, alpha in enumerate(np.asarray(alphas, np.float64)):
+            top2 = np.sort(alpha * p_img + (1 - alpha) * p_txt, axis=1)[:, -2:]
+            ties[i, j] = int((top2[:, 1] - top2[:, 0] <= (4 * beta * eps + 1e-6) * top2[:, 1])
+                             .sum())
+    return ties
+
+
+def recompute_on_cpu(torch, np, cfg, run):
+    """The zero-shot val grid and ``test_acc_fixed`` recomputed in fp32 on
+    the CPU from the card's cached features and the triple, against the
+    card's cached grid and result.  Two devices sum a dot product in other
+    orders, so a query whose two best classes tie to within that rounding
+    may fall either way (random weights give near-equal features): each
+    cell's count may differ from the card's by at most its near ties
+    (:func:`near_ties`, with ``eps`` the largest difference of the card's
+    logits from the CPU's, both computed here)."""
+    from protoclip_tpu_torch.core import accuracy, from_arrays
+    from protoclip_tpu_torch.eval import alpha_beta_sweep, default_alpha_beta_grid
+    from protoclip_tpu_torch.io import checkpoint_paths, load_checkpoint_triple
+    from protoclip_tpu_torch.memory import FeatureCache
+    from protoclip_tpu_torch.models import adapter_from_torch_state
+    from protoclip_tpu_torch.ops.proto import proto_logits
+
+    cache = FeatureCache(cfg.cache_dir, cfg.backbone, cfg.shots)
+    keys = cache.load(cache.visual_bank_stems(cfg.augment_epoch)[0])["keys"]
+    bank_t = cache.load(cache.text_bank_stem())["bank"]
+    split = {s: (cache.load(f"{s}_features")["features"], cache.load(f"{s}_labels")["labels"])
+             for s in ("val", "test")}
+    alphas, betas = default_alpha_beta_grid()
+    txt_p = torch.from_numpy(bank_t / np.linalg.norm(bank_t, axis=-1, keepdims=True))
+    logits = {}
+    for device in ("cpu", "cuda"):
+        img_p = from_arrays(keys, bank_t, {}, "fc", cfg.shots, device=device).prototypes()[0]
+        q = torch.from_numpy(split["val"][0]).to(device)
+        with torch.inference_mode():
+            logits[device] = [proto_logits(q, p.to(device)).cpu().numpy()
+                              for p in (img_p, txt_p)]
+        if device == "cpu":
+            grid = alpha_beta_sweep(*split["val"], img_p, txt_p.numpy(), alphas, betas)
+    eps = max(float(np.abs(a - b).max()) for a, b in zip(logits["cpu"], logits["cuda"]))
+    n = len(split["val"][1])
+    card_grid = cache.load(cache.hp_search_stem("val"))["acc"]
+    moved = np.abs(np.rint(grid * n) - np.rint(card_grid * n)).astype(np.int64)
+    ties = near_ties(np, *logits["cpu"], alphas, betas, eps)
+    bank_v, bank_tt, state = load_checkpoint_triple(*checkpoint_paths(
+        cfg.cache_dir, cfg.backbone, cfg.shots, cfg.alpha, cfg.beta, cfg.lr, cfg.augment_epoch,
+        cfg.train_epoch))
+    model = from_arrays(bank_v, bank_tt, adapter_from_torch_state(state, cfg.adapter),
+                        cfg.adapter, cfg.shots, device="cpu")
+    acc = accuracy(model, *split["test"], cfg.alpha, cfg.beta)
+    return {"grid_max_diff": float(np.abs(grid - card_grid).max()),
+            "grid_cells_moved": int((moved > 0).sum()), "grid_queries_moved": int(moved.sum()),
+            "grid_moves_beyond_near_ties": int(np.maximum(moved - ties, 0).sum()),
+            "near_ties": int(ties.sum()), "logit_eps_card_vs_cpu": eps,
+            "test_acc_fixed_diff": abs(acc - run["result"].test_acc_fixed)}
+
+
+def validator_summary(run):
+    r = run["result"]
+    return {"wall_s": run["wall_s"], "bank_s": run["bank_s"], "bank_images": run["bank_images"],
+            "bank_rows_encoded": run["bank_rows"], "bank_image_encode_card_s": run["bank_card_s"],
+            "image_encode_card_s": run["image_card_s"],
+            "bank_images_per_s": run["bank_images"] / run["bank_s"] if run["bank_s"] else None,
+            "image_encode_calls": run["image_calls"], "image_rows": run["image_rows"],
+            "text_encode_calls": run["text_calls"],
+            "K2": run["launches"]["fused_transformer_block"],
+            "K3": run["launches"]["fused_transformer_block_int8"],
+            "random_weight_accuracies_plumbing_only": {
+                "zero_shot_val_best": r.zero_shot.get("val_best_acc"),
+                "test_acc_fixed": r.test_acc_fixed, "test_acc_searched": r.test_acc_searched}}
+
+
+def check_fewsol_runs(cfgs, first, rerun, tables, records):
+    """(a)'s checks on the runs :func:`recording_runs` recorded."""
+    from protoclip_tpu_torch.models import BACKBONE_CONFIGS
+
+    vitl = BACKBONE_CONFIGS["ViT-L/14"]
+    for name, table in tables.items():
+        require("ERROR" not in table and "skip" not in table
+                and not any("error" in r for r in records[name]),
+                f"validate_accuracy's {name} table has a failed row: {records[name]}")
+    for mode, cfg in cfgs.items():
+        r, rr = first[mode], rerun[mode]
+        require(r["cfg"].cache_root == rr["cfg"].cache_root == cfg.cache_root
+                and r["int8"] is rr["int8"] is (mode == "int8"),
+                f"{mode}: a run's mode or cache tree is not its own")
+        per = vitl.vision_layers * r["image_calls"] + vitl.transformer_layers * r["text_calls"]
+        k2 = r["launches"]["fused_transformer_block"]
+        k3 = r["launches"]["fused_transformer_block_int8"]
+        require(r["image_calls"] > 0 and r["text_calls"] > 0
+                and (k2, k3) == ((per, 0) if mode == "bf16" else (0, per)),
+                f"{mode}: K2 {k2}, K3 {k3} for {r['image_calls']} image and "
+                f"{r['text_calls']} text encodes of ViT-L/14")
+        require(r["bank_images"] == TOOLKIT_N_CLASS * EXPERIMENT_SHOTS * EXPERIMENT_AUGMENT,
+                f"{mode}: the bank build encoded {r['bank_images']} images")
+        require(rr["image_calls"] == rr["text_calls"] == 0 and not any(rr["launches"].values()),
+                f"{mode}: the cached rerun encoded ({rr['image_calls']} image, "
+                f"{rr['text_calls']} text calls) or launched {rr['launches']}")
+        require(rr["result"].test_acc_fixed == r["result"].test_acc_fixed,
+                f"{mode}: the rerun's test_acc_fixed {rr['result'].test_acc_fixed} is not "
+                f"{r['result'].test_acc_fixed}")
+
+
+def check_vit_b32_runs(full, cached, rc, summary):
+    """(b)'s checks: ``validate_experiment``'s full run and its rerun."""
+    from protoclip_tpu_torch.models import BACKBONE_CONFIGS
+
+    vitb = BACKBONE_CONFIGS["ViT-B/32"]
+    require(rc == 0 and summary.get("ok") is True, f"validate_experiment returned {rc}")
+    require(not full["cfg"].only_test and cached["cfg"].only_test
+            and full["cfg"].backbone == "ViT-B/32", "validate_experiment's runs")
+    per = vitb.vision_layers * full["image_calls"] + vitb.transformer_layers * full["text_calls"]
+    require(full["image_calls"] > 0 and full["launches"]["fused_transformer_block"] == per
+            and full["launches"]["fused_transformer_block_int8"] == 0,
+            f"ViT-B/32 full run: launches {full['launches']} for {full['image_calls']} image "
+            f"and {full['text_calls']} text encodes")
+    require(full["result"].best_epoch >= 0, "the full run trained no epoch")
+    require(cached["image_calls"] == cached["text_calls"] == 0
+            and not any(cached["launches"].values())
+            and cached["result"].test_acc_fixed == full["result"].test_acc_fixed,
+            f"ViT-B/32 only_test rerun: launches {cached['launches']}, test_acc_fixed "
+            f"{cached['result'].test_acc_fixed} vs {full['result'].test_acc_fixed}")
+
+
+def cpu_val_rows(torch, np, data_root, seed):
+    """The fp32 ViT-L/14 on the CPU (the same seeded weights) over the
+    first EXPERIMENT_CPU_ROWS val images, preprocessed as the runner's
+    loader does; returns (features, seconds)."""
+    from protoclip_tpu_torch.data import EvalTransform, build_dataset, load_image, normalize_batch
+    from protoclip_tpu_torch.models import encode_image, load_clip
+
+    dataset = build_dataset("fewsol_198", data_root, EXPERIMENT_SHOTS, seed=seed)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cfg, params = load_clip("ViT-L/14", dtype=torch.float32, device="cpu", seed=SEED)
+        pixels = np.stack([EvalTransform(cfg.image_resolution)(load_image(d.impath))
+                           for d in dataset.val[:EXPERIMENT_CPU_ROWS]])
+        feats = encode_image(params, normalize_batch(torch.from_numpy(pixels), torch.float32), cfg)
+    return feats, time.perf_counter() - t0
+
+
+def phase_experiment(torch, np, tmp):
+    """The port's validators through their own ``main()``s on the card, with
+    random weights (seed 0, drawn once: :func:`shared_random_init`) and the
+    synthetic tokenizer:
+
+    (a) ``scripts.validate_accuracy --only fewsol_198 --int8`` with the
+        shipped ``configs/fewsol_198.yml`` (``only_test``) on ViT-L/14 at
+        full width over a FewSOL-198-layout tree of 480 x 640 JPEGs, cut as
+        EXPERIMENT_SHOTS / _AUGMENT / _EVAL say, scoring a triple written
+        first where the runner reads it, in both cache trees; then again,
+        where both modes must come from the caches (no encode, no launch)
+        with the same ``test_acc_fixed``.  The bf16 run must launch K2 once
+        a layer an encode and no K3, the int8 run K3 and no K2; 8 val rows
+        of each tree's cached features are held against the fp32 ViT-L/14
+        on the CPU from the same pixels, and the zero-shot grid and
+        ``test_acc_fixed`` recomputed on the CPU from the cached features
+        (:func:`recompute_on_cpu`);
+    (b) ``scripts.validate_experiment`` at its default, ViT-B/32: a full
+        ``run(only_test=False)`` (K2 12 an encode) and its cached
+        ``only_test`` rerun (no launch, the same accuracy).
+
+    The launch counts are set to 0 just before each run and read just after
+    it (:func:`recording_runs`).  Returns the launches of (a)'s bf16 and
+    int8 runs and of (b)'s full run."""
+    import io
+
+    from protoclip_tpu_torch.core import load_config
+    from protoclip_tpu_torch.memory import FeatureCache, banks
+    from protoclip_tpu_torch.scripts import validate_accuracy, validate_experiment
+
+    t_phase = time.perf_counter()
+    banks.tokenize = synthetic_tokenize  # the BPE vocab is not in the repository
+    root = os.path.join(tmp, "experiment")
+    data_root = os.path.join(root, "DATA")
+    t0 = time.perf_counter()
+    n_jpegs = write_fewsol_tree(np, data_root, EXPERIMENT_SHOTS, EXPERIMENT_EVAL)
+    jpeg_s = time.perf_counter() - t0
+    overrides = {"shots": EXPERIMENT_SHOTS, "augment_epoch": EXPERIMENT_AUGMENT,
+                 "cache_root": os.path.join(root, "caches"),
+                 "logs_dir_path": os.path.join(root, "logs")}
+    cfgs = {"bf16": load_config(EXPERIMENT_CONFIG, root_path=data_root, **overrides)}
+    cfgs["int8"] = load_config(EXPERIMENT_CONFIG, root_path=data_root,
+                               **{**overrides, "cache_root": overrides["cache_root"] + "-int8"})
+    for cfg in cfgs.values():
+        write_fewsol_triple(torch, np, cfg)
+    argv = ["--only", "fewsol_198", "--data-root", data_root, "--config-dir",
+            os.path.dirname(EXPERIMENT_CONFIG), "--int8",
+            *(arg for key, value in overrides.items() for arg in ("--set", f"{key}={value}"))]
+    runs, tables, records = [], {}, {}
+    out = io.StringIO()
+    with shared_random_init(torch):
+        with recording_runs(torch, runs):
+            for name in ("first", "rerun"):
+                path = os.path.join(root, f"ACCURACY_{name}.md")
+                validate_accuracy.main([*argv, "--out", path])
+                with open(path) as fh:
+                    tables[name] = fh.read()
+                with open(path + ".json") as fh:
+                    records[name] = json.load(fh)
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = validate_experiment.main([])
+            finally:
+                print(out.getvalue(), file=sys.stderr, end="")
+        cpu_f, cpu_s = cpu_val_rows(torch, np, data_root, cfgs["bf16"].seed)
+
+    require(len(runs) == 6, f"the validators ran run() {len(runs)} times, expected 6")
+    first = {"bf16": runs[0], "int8": runs[1]}
+    rerun = {"bf16": runs[2], "int8": runs[3]}
+    full, cached = runs[4], runs[5]
+    check_fewsol_runs(cfgs, first, rerun, tables, records)
+    cos, recomputed = {}, {}
+    for mode, cfg in cfgs.items():
+        cache = FeatureCache(cfg.cache_dir, cfg.backbone, cfg.shots)
+        card = torch.from_numpy(cache.load("val_features")["features"][:EXPERIMENT_CPU_ROWS])
+        cos[mode] = row_cosines(torch, card.float(), cpu_f).tolist()
+        recomputed[mode] = recompute_on_cpu(torch, np, cfg, first[mode])
+        require(min(cos[mode]) >= EXPERIMENT_COSINE[mode],
+                f"{mode}: card vs CPU fp32 val row cosines {cos[mode]}")
+        require(recomputed[mode]["grid_moves_beyond_near_ties"] == 0
+                and recomputed[mode]["test_acc_fixed_diff"] <= 1e-6,
+                f"{mode}: the CPU's grid and accuracy from the card's caches: {recomputed[mode]}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    check_vit_b32_runs(full, cached, rc, summary)
+
+    cfg = cfgs["bf16"]
+    emit({
+        "phase": "experiment", "nvidia_smi": summary["power_limit"],
+        "weights": "random, seed 0 (drawn once, shared by the runs)",
+        "tokenizer": "synthetic: the BPE vocab is not in the repository",
+        "accuracies": "random weights: plumbing checks, not results",
+        "fewsol_198": {
+            "config": EXPERIMENT_CONFIG, "backbone": cfg.backbone, "n_class": TOOLKIT_N_CLASS,
+            "alpha": cfg.alpha, "beta": cfg.beta, "adapter": cfg.adapter, "top_k": cfg.top_k,
+            "only_test": cfg.only_test, "batch_size": cfg.batch_size,
+            "reduced": {"shots": [16, EXPERIMENT_SHOTS], "augment_epoch": [10, EXPERIMENT_AUGMENT],
+                        "val_per_class": EXPERIMENT_EVAL, "test_per_class": EXPERIMENT_EVAL},
+            "jpegs": n_jpegs, "jpeg_hw": list(FRAME_HW), "jpeg_write_s": jpeg_s,
+            "runs": {mode: validator_summary(first[mode]) for mode in cfgs},
+            "reruns_from_cache": {
+                mode: {"wall_s": rerun[mode]["wall_s"],
+                       "launches": sum(rerun[mode]["launches"].values()),
+                       "encode_calls": rerun[mode]["image_calls"] + rerun[mode]["text_calls"],
+                       "test_acc_fixed": rerun[mode]["result"].test_acc_fixed}
+                for mode in cfgs},
+            "cos_vs_cpu_fp32_val_rows": cos, "cpu_fp32_reference_s": cpu_s,
+            "recomputed_on_cpu": recomputed, "table_row": tables["first"].splitlines()[-1]},
+        "vit_b32_full_run": {"validate_experiment": summary, "full": validator_summary(full),
+                             "only_test_rerun_wall_s": cached["wall_s"],
+                             "only_test_rerun_launches": sum(cached["launches"].values())},
+        "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+    return first["bf16"]["launches"], first["int8"]["launches"], full["launches"]
+
+
+# -- 13. times ------------------------------------------------------------------------
 
 TIME_RUNS = 12
 
@@ -3168,11 +3605,14 @@ def device_ms_by_kind(prof, prefix="rn50_profiled"):
     return out
 
 
-# -- 13. the block-variant bench (S1) -------------------------------------------------------
+# -- 14. the block-variant bench (S1) -------------------------------------------------------
 
+# one variant per distinct chain: the TPU script's schedule-only twins (v3-v7,
+# v9, v6g8, v2g8, v2g32, int8g8, int8g32) run their twin's chain, so they
+# would repeat its launches and checksum
 VARIANTS = (
-    "v0 v1 v2 v3 v4 v5 v6 v6g8 v7 v9 v2g8 v2g32 v10 "
-    "int8 int8g8 int8g32 int8h int8gb int8noattn int8static int8recip int8cast int8lnb int8s "
+    "v0 v1 v2 v10 "
+    "int8 int8h int8gb int8noattn int8static int8recip int8cast int8lnb int8s "
     "int8sg8 micro:mlp_xla micro:mlp_pallas micro:int8mlp micro:int8mlp_nogelu "
     "micro:int8mlp_fp32gelu micro:int8qkv micro:attn_pallas micro:attn_nosm micro:attn_noqkv"
 ).split()
@@ -3275,8 +3715,8 @@ def hold_chain(torch, prep, geom, numerics):
 
 
 def phase_variants(torch, np):
-    """The port's block-variant bench on the card: every variant of the
-    chip list at the full ViT-B/16 geometry, and four at ViT-L/14, each
+    """The port's block-variant bench on the card: the variants of
+    VARIANTS at the full ViT-B/16 geometry, and four at ViT-L/14, each
     timed as the bench times it (minimum of 8 after a warm-up; the median
     too), with its launches.  Each distinct chain is held against its plain
     versions (:func:`hold_chain`) once; a variant that only reschedules its
@@ -3495,7 +3935,7 @@ def phase_variant_times(torch, np):
     return r
 
 
-# -- 14. the contract line ------------------------------------------------------------
+# -- 15. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -3626,6 +4066,8 @@ def main() -> int:
         del clf
         torch.cuda.empty_cache()
         counts["mesh"] = phase_mesh(torch, np, tmp)
+        (counts["experiment"], counts["experiment_int8"],
+         counts["experiment_vit_b32"]) = phase_experiment(torch, np, tmp)
     rn_params = rn_setup.clip_params
     del rn_setup
     torch.cuda.empty_cache()

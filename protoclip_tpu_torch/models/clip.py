@@ -103,9 +103,11 @@ def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig,
     return _resnet.apply_resnet(params["visual"], images, cfg)
 
 
-def encode_text(params: Params, tokens: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
-    """(B, context) token ids -> (B, embed_dim) features."""
-    return _text.apply_text(params["text"], tokens, cfg)
+def encode_text(params: Params, tokens: torch.Tensor, cfg: CLIPConfig,
+                int8: Optional[bool] = None) -> torch.Tensor:
+    """(B, context) token ids -> (B, embed_dim) features.  ``int8`` picks
+    the block mode as in :func:`encode_image`."""
+    return _text.apply_text(params["text"], tokens, cfg, int8=int8)
 
 
 def clip_forward(params: Params, images: torch.Tensor, tokens: torch.Tensor,
@@ -431,9 +433,12 @@ def quantize_for_serving(params: Params) -> Params:
     return out
 
 
-def _maybe_quantize(params: Params) -> Params:
-    """The serving mode's int8 layers, made at load when it is on."""
-    return quantize_for_serving(params) if int8_enabled() else params
+def _maybe_quantize(params: Params, int8: Optional[bool]) -> Params:
+    """The serving mode's int8 layers, made at load when it is on (``int8``
+    None: ``$PROTOCLIP_INT8``)."""
+    if int8 is None:
+        int8 = int8_enabled()
+    return quantize_for_serving(params) if int8 else params
 
 
 def to_device(params: Params, device: torch.device) -> Params:
@@ -492,7 +497,7 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def load_clip(backbone: str, weights_path: Optional[str] = None,
               dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
-              seed: int = 0) -> Tuple[CLIPConfig, Params]:
+              seed: int = 0, int8: Optional[bool] = None) -> Tuple[CLIPConfig, Params]:
     """Load a CLIP backbone onto ``device`` (default: the card).
 
     Resolution order: explicit ``weights_path`` -> ``$PROTOCLIP_WEIGHTS_DIR``
@@ -500,9 +505,10 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
     release (``io/download.py``; a failed checksum raises, any other
     failure falls through) -> random initialization from the numpy ``seed``
     (with a warning on stderr: classification then carries no semantics),
-    unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  With
-    ``$PROTOCLIP_INT8`` on, the transformer stacks are quantized once here,
-    from the weights in ``dtype`` (:func:`quantize_for_serving`).
+    unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  In the W8A8 mode
+    (``int8``; None reads ``$PROTOCLIP_INT8``) the transformer stacks are
+    quantized once here, from the weights in ``dtype``
+    (:func:`quantize_for_serving`).
     """
     dev = resolve_device(device)
     path = weights_path or find_weights(backbone)
@@ -521,7 +527,7 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
                       "falling back to random init", file=sys.stderr)
     if path is not None:
         cfg, params = convert_clip_state_dict(load_state_dict(path))
-        return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev))
+        return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev), int8)
 
     if os.environ.get("PROTOCLIP_STRICT_WEIGHTS", "0").lower() in ("1", "true", "on"):
         raise FileNotFoundError(
@@ -540,4 +546,4 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
         file=sys.stderr,
     )
     params = init_clip_params(np.random.default_rng(seed), cfg)
-    return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev))
+    return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev), int8)

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -11,17 +11,30 @@ from protoclip_tpu_torch.models.layers import init_block_params, transformer
 from protoclip_tpu_torch.ops.layernorm import layer_norm
 
 
-def apply_text(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """Encode token ids (B, context) -> embeddings (B, embed_dim).
+def apply_text(params: Dict, tokens: torch.Tensor, cfg,
+               int8: Optional[bool] = None) -> torch.Tensor:
+    """Encode token ids (B, context) -> embeddings (B, embed_dim); ``int8``
+    as in :func:`layers.transformer`.
 
     The sequence feature is taken at the EOT position: the argmax token id,
     since EOT is the largest id in any sequence.
+
+    An id past the token embedding's rows raises ``ValueError``.  JAX's
+    gather clamps it to the last row, so a JAX checkpoint with a vocabulary
+    smaller than CLIP's still takes the banks' EOT padding (49407); the
+    port refuses it here rather than index past the table (an
+    ``IndexError`` on the CPU, a device assert on the card).
     """
     dtype = params["token_embedding"].dtype
     tokens = tokens.long()
+    vocab = params["token_embedding"].shape[0]
+    top = int(tokens.max()) if tokens.numel() else -1
+    if top >= vocab:
+        raise ValueError(f"token id {top} is past the {vocab}-row token embedding; "
+                         "CLIP's tokenizer and the banks' padding need 49408 rows")
     x = params["token_embedding"][tokens] + params["positional_embedding"].to(dtype)
     x = transformer(x, params["blocks"], cfg.transformer_heads, causal=True,
-                    qblocks=params.get("blocks_q"))
+                    qblocks=params.get("blocks_q"), int8=int8)
     x = layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
     eot = tokens.argmax(dim=-1)
     feats = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -2,7 +2,11 @@
 of ``protoclip_tpu/native``).
 
 The card does the model math; the host's hot loop is the image
-preprocess (JPEG decode -> bicubic resize -> center crop).
+preprocess (JPEG decode -> bicubic resize -> center crop).  Three entry
+points, as in the JAX package: the fused resize + center crop (what
+``data.transforms.clip_preprocess`` calls), a plain bicubic resize, and a
+box resize with a fused flip (RandomResizedCrop's resize, for callers that
+hold arrays).
 ``preprocess.cpp`` (a copy of the JAX package's) computes the resize and
 crop fused and pixel-exact with PIL (the arithmetic contract is in its
 header).  This module compiles it at first use with ``g++ -O3 -shared``
@@ -130,6 +134,13 @@ def load() -> Optional[ctypes.CDLL]:
         lib.resize_shorter_center_crop.restype = ctypes.c_int
         lib.resize_shorter_center_crop.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p,
                                                    ctypes.c_int, ctypes.c_int]
+        lib.resize_bicubic.restype = ctypes.c_int
+        lib.resize_bicubic.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int,
+                                       ctypes.c_int]
+        lib.resize_box.restype = ctypes.c_int
+        lib.resize_box.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_double, ctypes.c_double,
+                                   ctypes.c_double, ctypes.c_double, ctypes.c_int]
         _lib = lib
         return _lib
 
@@ -156,3 +167,42 @@ def resize_shorter_center_crop(src: np.ndarray, size: int, crop: int) -> Optiona
     )
     return dst if rc == 0 else None
 
+
+
+def resize_bicubic(src: np.ndarray, out_h: int, out_w: int) -> Optional[np.ndarray]:
+    """Bicubic resize to (out_h, out_w), pixel-exact with PIL BICUBIC.
+    Returns None when the native path is unavailable or declines the input."""
+    lib = load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    if src.ndim != 3 or src.shape[2] != 3:
+        return None
+    dst = np.empty((out_h, out_w, 3), np.uint8)
+    rc = lib.resize_bicubic(
+        _as_u8_ptr(src), src.shape[0], src.shape[1], _as_u8_ptr(dst), out_h, out_w
+    )
+    return dst if rc == 0 else None
+
+
+def resize_box(src: np.ndarray, out_h: int, out_w: int, box: tuple,
+               flip: bool = False) -> Optional[np.ndarray]:
+    """Bicubic resize of a source ``box`` (left, top, right, bottom) to
+    (out_h, out_w) with an optional fused horizontal flip: pixel-exact with
+    PIL ``img.resize((w, h), BICUBIC, box=box)`` (+ ``FLIP_LEFT_RIGHT``),
+    the train-time RandomResizedCrop's resize.  Returns None when the native
+    path is unavailable or the box is degenerate (callers fall back to
+    PIL)."""
+    lib = load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(src, dtype=np.uint8)
+    if src.ndim != 3 or src.shape[2] != 3:
+        return None
+    left, top, right, bottom = (float(v) for v in box)
+    dst = np.empty((out_h, out_w, 3), np.uint8)
+    rc = lib.resize_box(
+        _as_u8_ptr(src), src.shape[0], src.shape[1], _as_u8_ptr(dst),
+        out_h, out_w, left, top, right, bottom, 1 if flip else 0,
+    )
+    return dst if rc == 0 else None

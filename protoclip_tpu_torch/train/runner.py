@@ -65,7 +65,8 @@ from protoclip_tpu_torch.parallel import (
 from protoclip_tpu_torch.train.episodic import EpisodicTrainer
 
 
-def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None):
+def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None,
+                    int8: Optional[bool] = None):
     """Load CLIP onto ``device`` (default: the card) and return
     ``(encode_images, encode_texts, clip_cfg, clip_params)``.
 
@@ -76,14 +77,16 @@ def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None):
     device and copied once to the others, and image batches shard over the
     mesh (their size a multiple of it) with the features gathered back onto
     the first device; the text encode stays on the first device, as JAX's
-    stays unsharded.
+    stays unsharded.  ``int8`` picks the towers' block mode (True: the W8A8
+    serving block, K3; None reads ``$PROTOCLIP_INT8``).
     """
     dev = process_device(device, mesh)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-    clip_cfg, clip_params = load_clip(cfg.backbone, cfg.weights_path, dtype=dtype, device=dev)
+    clip_cfg, clip_params = load_clip(cfg.backbone, cfg.weights_path, dtype=dtype, device=dev,
+                                      int8=int8)
 
     def image(params, images_u8: torch.Tensor) -> torch.Tensor:
-        return encode_image(params, normalize_batch(images_u8, dtype), clip_cfg)
+        return encode_image(params, normalize_batch(images_u8, dtype), clip_cfg, int8=int8)
 
     if mesh is None:
         weights = clip_params
@@ -100,7 +103,7 @@ def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None):
 
     @torch.inference_mode()
     def encode_texts(tokens: np.ndarray) -> torch.Tensor:
-        return encode_text(clip_params, torch.from_numpy(tokens).to(dev), clip_cfg)
+        return encode_text(clip_params, torch.from_numpy(tokens).to(dev), clip_cfg, int8=int8)
 
     return encode_images, encode_texts, clip_cfg, clip_params
 
@@ -138,13 +141,13 @@ class ExperimentSetup:
 
 
 def prepare_experiment(cfg: Config, progress: bool = True, device: DeviceLike = None,
-                       mesh=None) -> ExperimentSetup:
+                       mesh=None, int8: Optional[bool] = None) -> ExperimentSetup:
     """Load CLIP, build the dataset and loaders, and materialize the memory
     banks and eval features (cached).  With a ``mesh`` the image encodes
     shard over it (:func:`make_encode_fns`) and everything else runs on its
-    first device."""
+    first device; ``int8`` as in :func:`make_encode_fns`."""
     dev = process_device(device, mesh)
-    encode_fn, text_fn, clip_cfg, clip_params = make_encode_fns(cfg, dev, mesh)
+    encode_fn, text_fn, clip_cfg, clip_params = make_encode_fns(cfg, dev, mesh, int8)
     cache = FeatureCache(cfg.cache_dir, cfg.backbone, cfg.shots)
     dataset = build_dataset(cfg.dataset, cfg.root_path, cfg.shots, seed=cfg.seed)
     n_px = clip_cfg.image_resolution
@@ -444,7 +447,7 @@ def fit(cfg: Config, trainer, setup: ExperimentSetup, paths, logger: MetricLogge
 
 
 def run(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = None,
-        device: DeviceLike = None, mesh=None) -> ExperimentResult:
+        device: DeviceLike = None, mesh=None, int8: Optional[bool] = None) -> ExperimentResult:
     """Run one Proto-CLIP experiment from a config, on ``device`` (default:
     the card): prepare, the zero-shot sweep, the episodic Proto-CLIP-F
     trainer (unless ``cfg.only_test``) and the test of the best triple at
@@ -456,12 +459,14 @@ def run(cfg: Config, progress: bool = True, logger: Optional[MetricLogger] = Non
     a few thousand d-dim rows (adapter and bank gathers, no CLIP forward),
     far too little work to share.  The F-Q^T trainer
     (``train/qt_runner.py``), whose step crosses the image tower, shards
-    its batches."""
+    its batches.  ``int8`` picks the encodes' block mode (True: the W8A8
+    serving block; None reads ``$PROTOCLIP_INT8``); give the W8A8 mode a
+    cache tree of its own, as its features differ."""
     cfg.validate()
     own_logger = logger is None
     logger = logger or MetricLogger(os.path.join(cfg.logs_dir_path, cfg.dataset))
     try:
-        setup = prepare_experiment(cfg, progress, device, mesh)
+        setup = prepare_experiment(cfg, progress, device, mesh, int8)
         zs = zero_shot_sweep_phase(cfg, setup, logger, progress)
         # the reference overrides the searched HPs with the config's
         # (main.py:213-214): training and the test run at the tuned point

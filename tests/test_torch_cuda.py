@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import synthetic_tokenize
 from protoclip_tpu_torch.models.layers import init_block_params
 from protoclip_tpu_torch.ops import kernels
 
@@ -825,3 +826,36 @@ def test_cuda_mesh_nccl_one_rank_qt_step(cuda_device, tmp_path):
             assert torch.equal(a, b), name
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_validate_experiment_vit_b32(cuda_device, monkeypatch, capsys):
+    """``scripts.validate_experiment`` at its default, ViT-B/32 (random
+    weights, bf16), on the card: the full ``run(only_test=False)`` launches
+    K2 (12 a ViT-B/32 image or text encode) and no K3, and its
+    ``only_test`` rerun launches nothing and reproduces ``test_acc_fixed``."""
+    from protoclip_tpu_torch.memory import banks
+    from protoclip_tpu_torch.scripts import validate_experiment
+    from protoclip_tpu_torch.train import runner
+
+    monkeypatch.setattr(banks, "tokenize", synthetic_tokenize)
+    runs = []
+    real_run = runner.run
+
+    def run(cfg, *args, **kwargs):
+        kernels.reset_launch_counts()
+        result = real_run(cfg, *args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append((cfg.only_test, kernels.launch_counts(), result))
+        return result
+
+    monkeypatch.setattr(runner, "run", run)
+    assert validate_experiment.main([]) == 0
+    out = capsys.readouterr().out
+    assert "acc reproduced" in out and "[validate] backend=cuda" in out
+    (first_only_test, first, full), (rerun_only_test, rerun, cached) = runs
+    assert (first_only_test, rerun_only_test) == (False, True)
+    k2 = first["fused_transformer_block"]
+    assert k2 > 0 and k2 % 12 == 0 and first["fused_transformer_block_int8"] == 0, first
+    assert not any(rerun.values()), rerun
+    assert cached.test_acc_fixed == full.test_acc_fixed and full.best_epoch >= 0

@@ -55,7 +55,10 @@ def test_port_has_files():
                    "toolkit/microbatch.py", "obs/profiler.py", "io/export.py", "cli/export.py",
                    "cli/serve.py", "client.py", "native/__init__.py", "parallel/__init__.py",
                    "parallel/mesh.py", "parallel/sharding.py", "parallel/dryrun.py",
-                   "models/encoder.py", "io/download.py"):
+                   "models/encoder.py", "io/download.py", "scripts/_env.py",
+                   "scripts/validate_experiment.py", "scripts/validate_accuracy.py",
+                   "examples/__init__.py", "examples/train_quickstart.py",
+                   "examples/serving_quickstart.py"):
         assert "protoclip_tpu_torch/" + module in rel, module
     assert (REPO / "protoclip_tpu_torch" / "native" / "preprocess.cpp").is_file()
 

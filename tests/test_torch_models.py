@@ -120,6 +120,23 @@ def test_text_eot_gather(tiny):
     np.testing.assert_allclose(out[0].numpy(), out2[0].numpy(), atol=1e-5)
 
 
+def test_text_refuses_ids_that_jax_clamps(tiny, rng):
+    """A deliberate difference (ROADMAP.md section 3): a row of the banks'
+    EOT padding at CLIP's id 49407, past the tiny vocab.  JAX's gather
+    clamps it to the last row; the port raises instead of indexing past
+    the table."""
+    jparams, cfg, params = tiny
+    tokens = tiny_tokens(rng, 2, TINY_VIT.context_length, TINY_VIT.vocab_size)
+    tokens[1] = 49407
+    clamped = np.minimum(tokens, TINY_VIT.vocab_size - 1)
+    np.testing.assert_array_equal(
+        np.asarray(jclip.encode_text(jparams, jnp.asarray(tokens), TINY_VIT)),
+        np.asarray(jclip.encode_text(jparams, jnp.asarray(clamped), TINY_VIT)))
+    with pytest.raises(ValueError, match="token id 49407 is past the 128-row token embedding"):
+        clip.encode_text(params, torch.from_numpy(tokens), cfg)
+    clip.encode_text(params, torch.from_numpy(clamped), cfg)  # in range: no error
+
+
 def test_transformer_with_explicit_mask_matches_jax(rng):
     """An explicit additive mask takes residual_block instead of K2."""
     D, H, L, B, layers = 64, 4, 10, 2, 2

@@ -1,8 +1,10 @@
 """The port's native preprocess (``protoclip_tpu_torch/native``) on the CPU:
-the fused bicubic resize + center crop (the one entry point the port
-calls), pixel-exact with PIL and with the JAX package's ``native`` over the
-geometries of ``tests/test_native.py``; the ``$PROTOCLIP_NATIVE`` gate; the
-build directory and key of its own; the eviction of a stale object."""
+the fused bicubic resize + center crop (the entry point the port's
+transforms call), the plain bicubic resize and the box resize with its
+fused flip, each pixel-exact with PIL and with the JAX package's
+``native`` over the geometries of ``tests/test_native.py``; the
+``$PROTOCLIP_NATIVE`` gate; the build directory and key of its own; the
+eviction of a stale object."""
 
 import numpy as np
 import pytest
@@ -12,7 +14,9 @@ from protoclip_tpu import native as jax_native
 from protoclip_tpu.data.transforms import clip_preprocess as jax_clip_preprocess
 
 from protoclip_tpu_torch import native
-from protoclip_tpu_torch.data.transforms import center_crop, clip_preprocess, resize_shorter
+from protoclip_tpu_torch.data.transforms import (center_crop, clip_preprocess,
+                                                 random_train_transform, resize_shorter,
+                                                 sample_rrc_box)
 from tests.test_native import GEOMETRIES
 
 
@@ -87,10 +91,64 @@ def test_clip_preprocess_is_native_and_equals_pil_and_jax(built, monkeypatch):
     np.testing.assert_array_equal(via_native, jax_clip_preprocess(img, 224))
 
 
+@pytest.mark.parametrize("oh,ow", [(224, 298), (298, 224), (224, 224), (112, 149), (448, 640)])
+def test_resize_bicubic_pixel_exact(built, oh, ow):
+    src = np.random.default_rng(oh * 7 + ow).integers(0, 256, (375, 500, 3), np.uint8)
+    got = native.resize_bicubic(src, oh, ow)
+    np.testing.assert_array_equal(got, np.asarray(Image.fromarray(src).resize((ow, oh),
+                                                                              Image.BICUBIC)))
+    np.testing.assert_array_equal(got, jax_native.resize_bicubic(src, oh, ow))
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_fuzz_resize_box_vs_pil_and_jax(built, flip):
+    rng = np.random.default_rng(1 + flip)
+    for _ in range(20):
+        h, w = int(rng.integers(20, 600)), int(rng.integers(20, 600))
+        src = rng.integers(0, 256, (h, w, 3), np.uint8)
+        cw, ch = int(rng.integers(4, w + 1)), int(rng.integers(4, h + 1))
+        left, top = int(rng.integers(0, w - cw + 1)), int(rng.integers(0, h - ch + 1))
+        size = int(rng.integers(16, 300))
+        box = (left, top, left + cw, top + ch)
+        ref = Image.fromarray(src).resize((size, size), Image.BICUBIC, box=box)
+        if flip:
+            ref = ref.transpose(Image.FLIP_LEFT_RIGHT)
+        got = native.resize_box(src, size, size, box, flip)
+        msg = f"{h}x{w} box={box} size={size}"
+        np.testing.assert_array_equal(got, np.asarray(ref), err_msg=msg)
+        np.testing.assert_array_equal(got, jax_native.resize_box(src, size, size, box, flip),
+                                      err_msg=msg)
+
+
+@pytest.mark.parametrize("box", [(10, 10, 10, 20), (-1, 0, 32, 32), (0, 0, 65, 32)],
+                         ids=["zero_width", "left_out_of_bounds", "right_out_of_bounds"])
+def test_resize_box_declines_degenerate_boxes(built, box):
+    src = np.zeros((64, 64, 3), np.uint8)
+    assert native.resize_box(src, 32, 32, box) is None
+    assert jax_native.resize_box(src, 32, 32, box) is None
+
+
+def test_resize_box_matches_the_train_transform(built):
+    """Fed the box and flip the port's ``random_train_transform`` draws,
+    ``resize_box`` gives its bytes."""
+    import random
+
+    src = np.random.default_rng(7).integers(0, 256, (375, 500, 3), np.uint8)
+    img = Image.fromarray(src)
+    for seed in range(6):
+        ref = random_train_transform(img, random.Random(seed), 224)
+        rng = random.Random(seed)  # replay the same draws
+        box = sample_rrc_box(500, 375, rng)
+        flip = rng.random() < 0.5
+        np.testing.assert_array_equal(native.resize_box(src, 224, 224, box, flip), ref)
+
+
 def test_env_gate(built, monkeypatch):
     monkeypatch.setenv("PROTOCLIP_NATIVE", "0")
     assert native.load() is None
     assert native.resize_shorter_center_crop(np.zeros((64, 64, 3), np.uint8), 224, 224) is None
+    assert native.resize_bicubic(np.zeros((64, 64, 3), np.uint8), 32, 32) is None
+    assert native.resize_box(np.zeros((64, 64, 3), np.uint8), 32, 32, (0, 0, 32, 32)) is None
     # forced on with no toolchain: every call raises, none falls back to PIL
     monkeypatch.setenv("PROTOCLIP_NATIVE", "1")
     monkeypatch.setattr(native, "_lib", None)
