@@ -123,14 +123,36 @@ Phases, one JSON line each on stdout:
              Wall and bank-build seconds and images/s per mode, encode
              calls, K2/K3 launches and the random-weight accuracies
              (plumbing checks, not results).
-13. times  - each kernel (CUDA events around one call, and its device
+13. tools  - the repository's remaining tools, ported under
+             ``protoclip_tpu_torch/scripts/``, through their own ``main()``s
+             (random weights, seed 0): ``validate_bundle`` on ViT-B/16
+             (batch 256, buckets 8 and 64, bf16 and int8: the reloaded
+             bundle bit for bit the live encode, each bucket within the JAX
+             bars, ms per dispatch; K2 / K3 once a layer a bucket's warm-up,
+             capture and the live encode); ``bench_serve_http`` as a
+             subprocess over the bf16 bundle (32 requests of 8 images,
+             serial then concurrent) and over an int8 one (serial
+             dispatches equal the requests; the server stopped, its port
+             closed); ``bench_int8_peak`` (N = 8192, 20 steps: ``_int_mm``,
+             bf16 ``matmul``, K3.c and K2.b at N^3; the int8 checksum exact,
+             K3.c equal to ``_int_mm``, K2.b within bf16's bars of
+             ``matmul``); ``bench_rn50_int8`` (RN50's 7 hot conv shapes at
+             B = 256: the bf16 conv, im2col + K3.b + K3.c, the pre-quantized
+             product and ``_int_mm``, each int8 product within a cosine of
+             0.99 of the conv; layer4.conv2's 4608-wide rows, past K3.b's
+             4096, have no im2col + K3.b line); ``bench_episodic_sharding``
+             at ImageNet's shape on a mesh of the card and on two shards of
+             it (the steps of one fixed epoch of episodes, 100 epochs each
+             way, in turn; the wiring's cost, not scaling; parameters within
+             1e-6).
+14. times  - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
              (images B=256, prompts B=1024) and at the classifier's ViT-L/14
              image block (B=16), and the encode rates in bf16 (K2) and int8
              (K3), and RN50's image encode in bf16.
-14. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+15. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over one variant of each
              distinct chain (23; the TPU script's schedule-only twins are
@@ -143,10 +165,10 @@ Phases, one JSON line each on stdout:
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times), the int8 attention core
              also at ViT-L/14's (B=128, LP=264).
-15. kernels - the contract line: every ported kernel with the path or phase
+16. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches (by path, the runner's, the
-             trainers' and the server's too, and per replay of each serving
-             bucket's CUDA graph), error, times and bound.
+             trainers', the server's and the tools' too, and per replay of
+             each serving bucket's CUDA graph), error, times and bound.
 
 The bf16 paths of the two kernels that carry the blocks run on the tensor
 cores: ``attention_packed.cu`` as mma.sync m16n8k16 (Q, K, V through
@@ -3299,7 +3321,148 @@ def phase_experiment(torch, np, tmp):
     return first["bf16"]["launches"], first["int8"]["launches"], full["launches"]
 
 
-# -- 13. times ------------------------------------------------------------------------
+# -- 13. the repository's tools: bundle validator, serving bench and the probes ---------
+
+TOOLS_SERVE_REQUESTS, TOOLS_SERVE_IMAGES = 32, 8
+TOOLS_SERVE_TIMEOUT_S = 300
+
+
+def tool_main(main, argv):
+    """(exit code, the tool's last JSON line) of a tool's ``main(argv)`` run
+    in this process; its stdout goes to stderr, so this script's stdout
+    keeps one line a phase."""
+    import io
+
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+    finally:
+        print(out.getvalue(), file=sys.stderr, end="")
+    return rc, last_json(out.getvalue())
+
+
+def last_json(text):
+    """The last line of ``text`` that is a JSON object, parsed (None if
+    there is none)."""
+    lines = [line for line in text.splitlines() if line.startswith("{")]
+    return json.loads(lines[-1]) if lines else None
+
+
+def serve_bench(tmp, mode):
+    """``scripts.bench_serve_http`` over a ViT-B/16 bundle (batch 256,
+    buckets 8 and 64) in a subprocess, as the JAX script is run: it exports
+    in a child, serves from another and drives it from a process with no
+    CUDA call.  Returns its JSON line and its port, which must be closed
+    once it has exited: the server was stopped."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = [sys.executable, "-m", "protoclip_tpu_torch.scripts.bench_serve_http",
+            "--batch", str(SERVE_BATCH), "--buckets", *map(str, SERVE_BUCKETS),
+            "--requests", str(TOOLS_SERVE_REQUESTS),
+            "--images-per-request", str(TOOLS_SERVE_IMAGES),
+            "--bundle", os.path.join(tmp, f"serve_bench_{mode}"), "--port", str(port),
+            "--warmup-timeout", str(TOOLS_SERVE_TIMEOUT_S), *(["--int8"] if mode == "int8" else [])]
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=2 * TOOLS_SERVE_TIMEOUT_S)
+    print(proc.stderr[-4000:], file=sys.stderr)
+    require(proc.returncode == 0, f"bench_serve_http ({mode}) exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    line = last_json(proc.stdout)
+    with socket.socket() as s:
+        stopped = s.connect_ex(("127.0.0.1", port)) != 0
+    require(stopped, f"bench_serve_http ({mode}) left its server listening on {port}")
+    require(line["serial_dispatches"] == TOOLS_SERVE_REQUESTS
+            and 1 <= line["concurrent_dispatches"] <= TOOLS_SERVE_REQUESTS,
+            f"bench_serve_http ({mode}) dispatches: {line}")
+    return {**line, "server_stopped": stopped}
+
+
+def phase_tools(torch, np, tmp):
+    """The repository's remaining tools, ported under ``protoclip_tpu_torch/
+    scripts/``, at their sizes on the card (random weights, seed 0):
+
+    (1) ``validate_bundle`` on ViT-B/16 at batch 256 with buckets 8 and 64,
+        bf16 and ``--int8``: the reloaded bundle equals the live encode bit
+        for bit, the buckets keep the JAX bars; K2 (K3) once a layer for
+        each bucket's warm-up and capture and for the live encode, the
+        other block never;
+    (2) ``bench_serve_http`` over the bf16 bundle (32 requests of 8 images)
+        and once over an int8 bundle, each as a subprocess: serial
+        dispatches equal the requests, the server stopped;
+    (3) ``bench_int8_peak`` at N = 8192, 20 steps: the int8 checksum exact,
+        K3.c equal to ``torch._int_mm``, K2.b within bf16's bars of
+        ``torch.matmul``;
+    (4) ``bench_rn50_int8`` at B = 256, 20 steps: every int8 product within
+        a cosine of 0.99 of the bf16 convolution (no im2col + K3.b line for
+        layer4.conv2, whose rows are wider than K3.b takes);
+    (5) ``bench_episodic_sharding`` at ImageNet's shape on a mesh of the
+        card and on two shards of it: the parameters within 1e-6.
+
+    Each tool's own check fails its exit code, and a non-zero code fails
+    the phase.  Returns the launches of the in-process tools (1, 3-5)."""
+    from protoclip_tpu_torch.models.clip import BACKBONE_CONFIGS
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.scripts import (
+        bench_episodic_sharding,
+        bench_int8_peak,
+        bench_rn50_int8,
+        validate_bundle,
+    )
+    from protoclip_tpu_torch.scripts.validate_experiment import describe_device
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    lines, seconds = {}, {}
+    layers = BACKBONE_CONFIGS[SERVE_BACKBONE].vision_layers
+    buckets = len(SERVE_BUCKETS) + 1
+    for mode in ("bf16", "int8"):
+        blocks = ("fused_transformer_block", "fused_transformer_block_int8")
+        block, other = blocks[::-1] if mode == "int8" else blocks
+        before = K.launch_counts()
+        t0 = time.perf_counter()
+        rc, line = tool_main(validate_bundle.main, [
+            "--batch", str(SERVE_BATCH), "--buckets", *map(str, SERVE_BUCKETS),
+            *(["--int8"] if mode == "int8" else [])])
+        seconds[f"validate_bundle_{mode}"] = time.perf_counter() - t0
+        after = K.launch_counts()
+        launched = {k: after[k] - before[k] for k in (block, other)}
+        require(rc == 0, f"validate_bundle ({mode}) failed")
+        # each bucket's warm-up and capture, and the live encode
+        require(launched[block] == layers * (2 * buckets + 1) and launched[other] == 0,
+                f"validate_bundle ({mode}) launched {launched}")
+        lines[f"validate_bundle_{mode}"] = {**line, "launches": launched}
+    torch.cuda.empty_cache()
+    for mode in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        lines[f"bench_serve_http_{mode}"] = serve_bench(tmp, mode)
+        seconds[f"bench_serve_http_{mode}"] = time.perf_counter() - t0
+    for name, main, argv in (
+            ("bench_int8_peak", bench_int8_peak.main, []),
+            ("bench_rn50_int8", bench_rn50_int8.main, []),
+            ("bench_episodic_sharding_mesh_1", bench_episodic_sharding.main,
+             ["--device", "cuda", "--devices", "1"]),
+            ("bench_episodic_sharding_2_shards", bench_episodic_sharding.main,
+             ["--device", "cuda:0", "--devices", "2"])):
+        t0 = time.perf_counter()
+        rc, line = tool_main(main, argv)
+        seconds[name] = time.perf_counter() - t0
+        require(rc == 0, f"{name} failed: {line}")
+        lines[name] = line
+        torch.cuda.empty_cache()
+    counts = K.launch_counts()
+    for kernel in ("quant_rows", "gemm_int8_epilogue", "gemm_bias_epilogue"):
+        require(counts[kernel] > 0, f"the tools launched no {kernel}: {counts}")
+    emit({"phase": "tools", "nvidia_smi": describe_device(torch.device("cuda", 0))["power_limit"],
+          "weights": "random, seed 0", "tools": lines,
+          "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+          "phase_seconds": time.perf_counter() - t_phase})
+    return counts
+
+
+# -- 14. times ------------------------------------------------------------------------
 
 TIME_RUNS = 12
 
@@ -3605,7 +3768,7 @@ def device_ms_by_kind(prof, prefix="rn50_profiled"):
     return out
 
 
-# -- 14. the block-variant bench (S1) -------------------------------------------------------
+# -- 15. the block-variant bench (S1) -------------------------------------------------------
 
 # one variant per distinct chain: the TPU script's schedule-only twins (v3-v7,
 # v9, v6g8, v2g8, v2g32, int8g8, int8g32) run their twin's chain, so they
@@ -3935,7 +4098,7 @@ def phase_variant_times(torch, np):
     return r
 
 
-# -- 15. the contract line ------------------------------------------------------------
+# -- 16. the contract line ------------------------------------------------------------
 
 PALLAS = "protoclip_tpu/ops/pallas_kernels.py"
 KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that launches it)
@@ -4068,6 +4231,7 @@ def main() -> int:
         counts["mesh"] = phase_mesh(torch, np, tmp)
         (counts["experiment"], counts["experiment_int8"],
          counts["experiment_vit_b32"]) = phase_experiment(torch, np, tmp)
+        counts["tools"] = phase_tools(torch, np, tmp)
     rn_params = rn_setup.clip_params
     del rn_setup
     torch.cuda.empty_cache()

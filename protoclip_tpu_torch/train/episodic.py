@@ -202,14 +202,19 @@ class BankTrainer:
     def _lr(self) -> float:
         return cosine_lr(self.lr, self.epoch, self.train_epoch * self.n_class * self.k_shots)
 
+    def _probs(self, params: Dict, frozen_bank_t: torch.Tensor, zq_frozen: torch.Tensor):
+        """(P, image prototypes, text prototypes): the adapter of ``params``
+        on the frozen query features, against the prototypes of its banks
+        (``frozen_bank_t`` where ``params`` holds no textual bank)."""
+        img_proto = class_prototypes(params["bank_v"], self.n_class, self.k_shots)
+        txt_proto = l2_normalize(params.get("bank_t", frozen_bank_t).float())
+        zq = l2_normalize(apply_adapter(params["adapter"], zq_frozen, self.adapter_kind).float())
+        return proto_probs(zq, img_proto, txt_proto, self.alpha, self.beta), img_proto, txt_proto
+
     def _loss(self, zq_frozen: torch.Tensor, labels: torch.Tensor, weights: torch.Tensor):
         """(terms, matches) of one step: the adapter on the frozen query
         features, ``P`` against the prototypes of the trainable banks."""
-        params = self.params
-        img_proto = class_prototypes(params["bank_v"], self.n_class, self.k_shots)
-        txt_proto = l2_normalize(params.get("bank_t", self._frozen_bank_t).float())
-        zq = l2_normalize(apply_adapter(params["adapter"], zq_frozen, self.adapter_kind).float())
-        p = proto_probs(zq, img_proto, txt_proto, self.alpha, self.beta)
+        p, img_proto, txt_proto = self._probs(self.params, self._frozen_bank_t, zq_frozen)
         terms = protoclip_loss(p, labels, img_proto, txt_proto, self.losses, query_weights=weights)
         matches = ((p.argmax(dim=-1) == labels).float() * weights).sum()
         return terms, matches

@@ -859,3 +859,26 @@ def test_cuda_validate_experiment_vit_b32(cuda_device, monkeypatch, capsys):
     assert k2 > 0 and k2 % 12 == 0 and first["fused_transformer_block_int8"] == 0, first
     assert not any(rerun.values()), rerun
     assert cached.test_acc_fixed == full.test_acc_fixed and full.best_epoch >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_validate_bundle_vit_b16(cuda_device, monkeypatch, int8):
+    """``scripts.validate_bundle`` on ViT-B/16 (random weights) at batch 16
+    with bucket 8: the reloaded bundle equals the live encode bit for bit,
+    the bucket keeps the JAX script's bars, and each replay was captured
+    with the block once a layer (K2, or K3 with ``--int8``)."""
+    from protoclip_tpu_torch.scripts import validate_bundle
+
+    monkeypatch.delenv("PROTOCLIP_INT8", raising=False)
+    argv = ["--batch", "16", "--buckets", "8", "--iters", "2",
+            *(["--int8"] if int8 else [])]
+    result = validate_bundle.validate(validate_bundle.build_parser().parse_args(argv))
+    assert result["failure"] is None
+    assert set(result["line"]) == {"bundle_images_per_sec_device_input", "ms_per_batch",
+                                   "note", "bucket_8_ms_per_dispatch"}
+    block = "fused_transformer_block_int8" if int8 else "fused_transformer_block"
+    other = "fused_transformer_block" if int8 else "fused_transformer_block_int8"
+    assert sorted(result["per_replay"]) == [8, 16]
+    for launches in result["per_replay"].values():
+        assert launches[block] == 12 and other not in launches

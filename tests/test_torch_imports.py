@@ -58,7 +58,9 @@ def test_port_has_files():
                    "models/encoder.py", "io/download.py", "scripts/_env.py",
                    "scripts/validate_experiment.py", "scripts/validate_accuracy.py",
                    "examples/__init__.py", "examples/train_quickstart.py",
-                   "examples/serving_quickstart.py"):
+                   "examples/serving_quickstart.py", "scripts/validate_bundle.py",
+                   "scripts/bench_serve_http.py", "scripts/bench_int8_peak.py",
+                   "scripts/bench_rn50_int8.py", "scripts/bench_episodic_sharding.py"):
         assert "protoclip_tpu_torch/" + module in rel, module
     assert (REPO / "protoclip_tpu_torch" / "native" / "preprocess.cpp").is_file()
 
