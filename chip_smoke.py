@@ -10,14 +10,16 @@ Phases, one JSON line each on stdout:
 1. device  - require CUDA; the card's name and power limit from nvidia-smi.
 2. build   - compile ``protoclip_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
              the registers and spills ptxas reports for the tensor-core
-             attention and GEMM kernels.
+             attention and GEMM kernels and the fp32 GEMM and attention
+             (none may spill).
 3. check   - every CUDA kernel, and the K1, K2, K3 and K4 entries, against
              its plain PyTorch version on the card at the ViT-B/16, text,
              ViT-L/14 and ViT-B/32 block geometries; then the ragged edges
-             of the bf16 attention (L = 1, 16, 17, 77 causal, 197, 257 at
-             dh = 32, 64, 128, length < L, both bench modes, all three
-             stride layouts) and of the GEMM (M = 8 x 197, K = 200, N = 192,
-             each epilogue); of the int8 GEMM (M = 1, 8 x 197; K = 16 ...
+             of the attention in bf16 and fp32 (L = 1, 16, 17, 77 causal,
+             197, 257, 264 at dh = 32, 64, 128, length < L, both bench
+             modes, all three stride layouts) and of the GEMM (M = 8 x 197,
+             K = 200, N = 192, each epilogue); of the int8 GEMM (M = 1,
+             8 x 197; K = 16 ...
              4096; N = 8, 192, 2304; each epilogue, bit-exact), of the
              quantizer (W = 8 ... 4096, every quantizer and LayerNorm)
              and of the int8 attention core (L = 1 ... 264, dh = 16 ...
@@ -41,7 +43,14 @@ Phases, one JSON line each on stdout:
              (K2 launched 0 times) and whose ``test_acc_fixed`` must equal
              the accuracy of the cached features and the reloaded triple;
              RN50's card features held against the fp32 CPU path.
-7. train   - Proto-CLIP-F at ImageNet's shape (``configs/imagenet.yml``:
+7. fp32    - test-only Proto-CLIP in fp32 (``compute_dtype: float32``) on
+             ViT-B/16 at full width (random weights) through
+             ``train.runner.run`` on the runner phase's tree: K2 in fp32 once
+             a layer an encode (the fp32 GEMM and attention kernels), the
+             val features and textual bank against the same tower in fp32
+             on the CPU (row cosine >= 0.99999), the zero-shot grid and
+             ``test_acc_fixed`` against the CPU's recomputation.
+8. train   - Proto-CLIP-F at ImageNet's shape (``configs/imagenet.yml``:
              N = 1000, K = 16, RN50's d = 1024, conv-2x, visual bank only)
              on seeded unit features: ``EpisodicTrainer`` for 20 epochs on
              the card (ms per epoch, episodes and AdamW steps, the loss
@@ -51,13 +60,13 @@ Phases, one JSON line each on stdout:
              snapshots and a ``resume=True`` run on the runner phase's
              tree and caches (no encode, no launch), whose saved triple
              must score ``test_acc_fixed``.
-8. train_qt - F-Q^T through ``train.qt_runner.run_qt`` on ViT-B/16 at full
+9. train_qt - F-Q^T through ``train.qt_runner.run_qt`` on ViT-B/16 at full
              width (bf16, random weights) on a synthetic caltech101 tree of
              10 x 16 train JPEGs, batch 64, 3 epochs: step ms, images/s, K2
              launched 12 times every step, the CLIP parameters bit for bit
              unchanged and the banks and adapter moved; one step held
              against the CPU in fp32 (query features, loss, parameters).
-9. toolkit - the deployment toolkit on ViT-L/14 at full width (bf16,
+10. toolkit - the deployment toolkit on ViT-L/14 at full width (bf16,
              random weights) with configs/fewsol_198.yml's classifier over a
              FewSOL-198-shaped triple (198 classes x K = 16, fc adapter):
              ``toolkit.ProtoClipClassifier`` (buckets 1, 8, 16) on the robot
@@ -71,7 +80,7 @@ Phases, one JSON line each on stdout:
              ``toolkit.test_ood_performance`` on an imagenet_v2-layout tree,
              its accuracy against the CPU's, then from its cache with no
              launch.
-10. serve  - serving through its entry points: ViT-B/16 bundles written by
+11. serve  - serving through its entry points: ViT-B/16 bundles written by
              ``cli.export`` (batch 256, buckets 8 and 64; bf16 and W8A8),
              loaded with one CUDA graph per bucket; each replay held
              against the eager encode of its bucket (bit for bit, bar
@@ -90,7 +99,7 @@ Phases, one JSON line each on stdout:
              The host preprocess runs natively ($PROTOCLIP_NATIVE=1); its
              decode + preprocess ms is also timed through PIL on the same
              JPEGs (and on the toolkit phase's crops).
-11. mesh   - the data mesh (``protoclip_tpu_torch.parallel``) at full
+12. mesh   - the data mesh (``protoclip_tpu_torch.parallel``) at full
              width on the one card (ViT-B/16, random weights, bf16 and
              W8A8): ``train.runner.make_encode_fns(cfg, make_mesh(1))`` on a
              B=256 batch bit for bit the unsharded encode (K2 / K3 12 an
@@ -105,7 +114,7 @@ Phases, one JSON line each on stdout:
              --mesh 1``, each bit for bit the direct call; images/s of the
              mesh encodes against the unsharded one (wiring cost on one
              card, not scaling).
-12. experiment - the port's validators through their own ``main()``s
+13. experiment - the port's validators through their own ``main()``s
              (random weights, seed 0; the synthetic tokenizer):
              ``scripts.validate_accuracy --only fewsol_198 --int8`` with the
              shipped configs/fewsol_198.yml (only_test) on ViT-L/14 at full
@@ -123,7 +132,7 @@ Phases, one JSON line each on stdout:
              Wall and bank-build seconds and images/s per mode, encode
              calls, K2/K3 launches and the random-weight accuracies
              (plumbing checks, not results).
-13. tools  - the repository's remaining tools, ported under
+14. tools  - the repository's remaining tools, ported under
              ``protoclip_tpu_torch/scripts/``, through their own ``main()``s
              (random weights, seed 0): ``validate_bundle`` on ViT-B/16
              (batch 256, buckets 8 and 64, bf16 and int8: the reloaded
@@ -145,14 +154,15 @@ Phases, one JSON line each on stdout:
              it (the steps of one fixed epoch of episodes, 100 epochs each
              way, in turn; the wiring's cost, not scaling; parameters within
              1e-6).
-14. times  - each kernel (CUDA events around one call, and its device
+15. times  - each kernel (CUDA events around one call, and its device
              time: the same with the call queued behind a spinning kernel),
              its plain version, one PyTorch library call for the same
              function and the bound, at the main path's encode batches
              (images B=256, prompts B=1024) and at the classifier's ViT-L/14
-             image block (B=16), and the encode rates in bf16 (K2) and int8
-             (K3), and RN50's image encode in bf16.
-15. variants - the block-variant bench (``python -m protoclip_tpu_torch.
+             image block (B=16), K2's kernels and entries in bf16 and in
+             fp32; the encode rates in bf16 (K2), fp32 (K2) and int8 (K3),
+             and RN50's image encode in bf16.
+16. variants - the block-variant bench (``python -m protoclip_tpu_torch.
              scripts.bench_block_variants``, the port of
              scripts/bench_block_variants.py) over one variant of each
              distinct chain (23; the TPU script's schedule-only twins are
@@ -165,7 +175,7 @@ Phases, one JSON line each on stdout:
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times), the int8 attention core
              also at ViT-L/14's (B=128, LP=264).
-16. kernels - the contract line: every ported kernel with the path or phase
+17. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches (by path, the runner's, the
              trainers', the server's and the tools' too, and per replay of
              each serving bucket's CUDA graph), error, times and bound.
@@ -176,7 +186,10 @@ cp.async into shared memory, a two-pass softmax over the whole row with
 the weights normalised before their bf16 rounding, P fed from registers)
 and ``gemm_bias_epilogue.cu`` as wgmma m64n128k16 on tiles that TMA brings
 through a 3-stage mbarrier ring, W read N-major through the descriptor's
-transpose bit; fp32 stays on the exact SIMT kernels.  The W8A8 block's
+transpose bit.  fp32 stays exact on the CUDA cores: the GEMM on 128x128
+tiles from the same TMA ring (8x8 outputs a thread, float4 reads through
+the swizzle), the attention on 64-row query tiles with K and V streamed in
+64-key chunks and a shared 64 x L score tile.  The W8A8 block's
 GEMM (``gemm_int8_epilogue.cu``) runs wgmma m64n128k32 s8 on the same ring,
 for both activation dtypes, and its quantizer (``quant_rows.cu``) reads
 each row from device memory once.  The bench's int8 attention core
@@ -253,8 +266,10 @@ def phase_device(torch):
 # -- 2. build ------------------------------------------------------------------
 
 
-TENSOR_CORE_KERNELS = ("attention_bf16_mma", "gemm_bf16_wgmma", "gemm_s8_wgmma",
-                       "attention_s8_mma")
+# the kernels whose registers and spills the build reports: the tensor-core
+# kernels and the fp32 GEMM and attention
+PTXAS_KERNELS = ("attention_bf16_mma", "gemm_bf16_wgmma", "gemm_s8_wgmma", "attention_s8_mma",
+                 "gemm_f32_ring", "attention_f32_tiled")
 # builtin types (one letter in the Itanium mangling) that the kernels' templates take
 MANGLED_BUILTINS = {"f": "float"}
 
@@ -285,15 +300,15 @@ def template_args(mangled, name):
 
 
 def ptxas_usage(log):
-    """{kernel<template args>: {"registers": n, "spill_bytes": n}} of the
-    tensor-core kernels, from nvcc's ``-Xptxas -v`` lines in the build log."""
+    """{kernel<template args>: {"registers": n, "spill_bytes": n}} of
+    PTXAS_KERNELS, from nvcc's ``-Xptxas -v`` lines in the build log."""
     import re
 
     usage, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = next((k for k in TENSOR_CORE_KERNELS if k + "I" in m.group(1)), None)
+            name = next((k for k in PTXAS_KERNELS if k + "I" in m.group(1)), None)
             entry = None if name is None else (
                 name + "<" + ",".join(template_args(m.group(1), name)) + ">")
             continue
@@ -316,8 +331,10 @@ def phase_build():
     _build.load_library()
     seconds = round(time.perf_counter() - t0, 3)
     usage = ptxas_usage((_build.BUILD_DIR / "build.log").read_text())
-    require(all(any(k.startswith(name) for k in usage) for name in TENSOR_CORE_KERNELS),
-            f"no ptxas report for the tensor-core kernels: {sorted(usage)}")
+    require(all(any(k.startswith(name + "<") for k in usage) for name in PTXAS_KERNELS),
+            f"no ptxas report for {PTXAS_KERNELS}: {sorted(usage)}")
+    spills = {k: u for k, u in usage.items() if u.get("spill_bytes", 0)}
+    require(not spills, f"kernels spill registers: {spills}")
     emit({"phase": "build", "seconds": seconds, "library": str(_build.BUILD_DIR / _build.LIB_NAME),
           "ptxas": usage})
 
@@ -617,8 +634,10 @@ def phase_check(torch, np):
 
 
 # (L, causal) and head dims of the attention's edges: one row, a 16-key
-# tile and one past it, the text block, the image lengths
-EDGE_LENGTHS = ((1, False), (16, False), (17, False), (77, True), (197, False), (257, False))
+# tile and one past it, the text block, the image lengths, and the bench's
+# ViT-L/14 length
+EDGE_LENGTHS = ((1, False), (16, False), (17, False), (77, True), (197, False), (257, False),
+                (264, False))
 EDGE_HEAD_DIMS = (32, 64, 128)
 EDGE_HEADS = 2
 
@@ -636,8 +655,6 @@ def check_edges(torch, np_rng, device, record):
             return t.to(device=device, dtype=dt)
 
         for (L, causal), dh in ((lc, dh) for lc in EDGE_LENGTHS for dh in EDGE_HEAD_DIMS):
-            if dtype == torch.float32 and L == 257 and dh == 128:
-                continue  # beyond the exact fp32 kernel's shared memory
             H, geom = EDGE_HEADS, f"edge_L{L}_dh{dh}"
             d = H * dh
             qkv = randn(3, L, 3 * d)
@@ -1184,6 +1201,109 @@ def phase_runner(torch, np, tmp):
           "image_tower_fp32_cos_vs_cpu": cos["fp32"], "image_tower_fp32_rel_err": rel32,
           "image_tower_bf16_damped_cos_vs_cpu": cos["bf16_damped"], "damp": RN_DAMP})
     return clip_cfg, setup, prepare_counts, cfg
+
+
+FP32_BACKBONE = "ViT-B/16"
+FP32_COSINE = 0.99999
+FP32_CPU_ROWS = 8
+
+
+def phase_fp32(torch, np, tmp):
+    """Test-only Proto-CLIP in fp32 (``compute_dtype: float32``) on ViT-B/16
+    at full width (random weights, seed 0) through ``train.runner.run`` on
+    the runner phase's synthetic caltech101 tree, in a cache tree of its
+    own: every encode runs K2 in fp32 (the fp32 GEMM and attention
+    kernels).  A seeded ``_v/_t/_a`` triple is written first where the run
+    reads it.  The launch counts are set to 0 just before the run and read
+    just after it (:func:`recording_runs`): K2 once a layer an encode, the
+    GEMM 4 and the attention once a block, no K3.  The first
+    FP32_CPU_ROWS val features and the textual bank are held against the
+    same tower in fp32 on the CPU (row cosine >= FP32_COSINE), and the
+    zero-shot grid and ``test_acc_fixed`` against the CPU's recomputation
+    from the cached features, near ties allowed (:func:`recompute_on_cpu`).
+    Returns the run's launches."""
+    from protoclip_tpu_torch.core import Config
+    from protoclip_tpu_torch.data import EvalTransform, build_dataset, load_image, normalize_batch
+    from protoclip_tpu_torch.io import checkpoint_paths, save_checkpoint_triple
+    from protoclip_tpu_torch.memory import FeatureCache, banks
+    from protoclip_tpu_torch.models import (BACKBONE_CONFIGS, adapter_to_torch_state,
+                                            encode_image, encode_text, init_adapter, load_clip)
+    from protoclip_tpu_torch.train import runner
+
+    t_phase = time.perf_counter()
+    banks.tokenize = synthetic_tokenize  # the BPE vocab is not in the repository
+    root = os.path.join(tmp, "fp32")
+    cfg = Config(dataset="caltech101", root_path=os.path.join(tmp, "DATA"), shots=SHOTS,
+                 backbone=FP32_BACKBONE, augment_epoch=AUGMENT, alpha=0.5, beta=5.0,
+                 adapter="fc", batch_size=RUNNER_BATCH, only_test=True,
+                 cache_root=os.path.join(root, "caches"),
+                 logs_dir_path=os.path.join(root, "logs"), compute_dtype="float32")
+    clip_cfg = BACKBONE_CONFIGS[FP32_BACKBONE]
+    d = clip_cfg.embed_dim
+    np_rng = np.random.default_rng(SEED)
+    adapter = init_adapter(torch.Generator().manual_seed(SEED), d, "fc")
+    save_checkpoint_triple(
+        *checkpoint_paths(cfg.cache_dir, cfg.backbone, cfg.shots, cfg.alpha, cfg.beta, cfg.lr,
+                          cfg.augment_epoch, cfg.train_epoch),
+        unit_rows(np, np_rng, N_CLASS * SHOTS, d), unit_rows(np, np_rng, N_CLASS, d),
+        adapter_to_torch_state(adapter, "fc"))
+    runs = []
+    with recording_runs(torch, runs):
+        result = runner.run(cfg, progress=False)
+    run = runs[0]
+    counts = run["launches"]
+    per = (clip_cfg.vision_layers * run["image_calls"]
+           + clip_cfg.transformer_layers * run["text_calls"])
+    require(run["image_calls"] > 0 and run["text_calls"] > 0
+            and counts["fused_transformer_block"] == per and counts["layernorm_rows"] == 2 * per
+            and counts["gemm_bias_epilogue"] == 4 * per and counts["attention_packed"] == per
+            and counts["fused_transformer_block_int8"] == 0,
+            f"fp32 run: launches {counts} for {run['image_calls']} image and "
+            f"{run['text_calls']} text encodes, expected K2 x {per}")
+
+    # the same tower in fp32 on the CPU, from the same pixels and prompts
+    cache = FeatureCache(cfg.cache_dir, cfg.backbone, cfg.shots)
+    card_val = torch.from_numpy(cache.load("val_features")["features"][:FP32_CPU_ROWS])
+    card_bank_t = torch.from_numpy(cache.load(cache.text_bank_stem())["bank"])
+    require(card_val.dtype == torch.float32 and bool(torch.isfinite(card_val).all())
+            and tuple(card_bank_t.shape) == (N_CLASS, d), "fp32 run's cached features")
+    dataset = build_dataset(cfg.dataset, cfg.root_path, cfg.shots, seed=cfg.seed)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, cpu_params = load_clip(FP32_BACKBONE, dtype=torch.float32, device="cpu", seed=SEED)
+        pixels = np.stack([EvalTransform(clip_cfg.image_resolution)(load_image(x.impath))
+                           for x in dataset.val[:FP32_CPU_ROWS]])
+        cpu_val = encode_image(cpu_params, normalize_batch(torch.from_numpy(pixels),
+                                                           torch.float32), clip_cfg)
+        cpu_bank_t = banks.build_textual_memory_bank(
+            lambda tokens: encode_text(cpu_params, torch.from_numpy(tokens), clip_cfg),
+            dataset.classnames, dataset.template, context_length=clip_cfg.context_length)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    cos_i = row_cosines(torch, card_val, cpu_val.float()).tolist()
+    cos_t = row_cosines(torch, card_bank_t, torch.from_numpy(cpu_bank_t)).tolist()
+    recomputed = recompute_on_cpu(torch, np, cfg, run)
+    require(min(cos_i) >= FP32_COSINE and min(cos_t) >= FP32_COSINE,
+            f"fp32 card vs CPU row cosines: val images {cos_i}, textual bank {cos_t}")
+    require(recomputed["grid_moves_beyond_near_ties"] == 0
+            and recomputed["test_acc_fixed_diff"] <= 1e-6,
+            f"fp32: the CPU's grid and accuracy from the card's caches: {recomputed}")
+    emit({"phase": "fp32", "backbone": FP32_BACKBONE, "compute_dtype": cfg.compute_dtype,
+          "weights": "random, seed 0", "tokenizer": "synthetic: the BPE vocab is not in the "
+          "repository", "dataset": "the runner phase's synthetic caltech101 tree",
+          "n_class": N_CLASS, "shots": SHOTS, "augment_epoch": AUGMENT, "val": N_EVAL,
+          "test": N_EVAL, "batch_size": RUNNER_BATCH, "run_wall_s": run["wall_s"],
+          "image_encode_card_s": run["image_card_s"], "image_encode_calls": run["image_calls"],
+          "image_rows": run["image_rows"], "text_encode_calls": run["text_calls"],
+          "launches": {k: n for k, n in counts.items() if n},
+          "cos_vs_cpu_fp32_val_rows": cos_i, "cos_vs_cpu_fp32_text_bank": cos_t,
+          "cpu_fp32_reference_s": cpu_s, "recomputed_on_cpu": recomputed,
+          "random_weight_accuracies_plumbing_only": {
+              "zero_shot_val_best": result.zero_shot.get("val_best_acc"),
+              "test_acc_fixed": result.test_acc_fixed},
+          "seconds": time.perf_counter() - t_phase})
+    torch.cuda.empty_cache()
+    return counts
 
 
 def damped_resnet(visual):
@@ -3545,14 +3665,39 @@ def _max_abs_err(out, ref):
     return max(float((o.double() - r.double()).abs().max()) for o, r in zip(outs, refs))
 
 
+def k2_work(b, l, d, causal, dtype="bfloat16"):
+    """{entry: (bytes, operations)} of K2's kernels and entries at a block
+    of batch ``b``, length ``l`` and width ``d`` with activations in
+    ``dtype`` (bf16: 2 bytes a value, fp32: 4): each input read once and
+    each output written once, LayerNorm parameters in fp32, the MLP 4d
+    wide, and the flops of the four products and of the attention's two."""
+    vb = 4 if dtype == "float32" else 2
+    m = b * l
+    gemm = {"qkv": (d, 3 * d, False), "out_proj": (d, d, True), "fc": (d, 4 * d, False),
+            "proj": (4 * d, d, True)}
+    attn = (4 * b * l * d * vb, attention_flops(b, l, d, causal))
+    work = {"layernorm_rows": (2 * m * d * vb + 2 * d * 4, 8 * m * d)}
+    for name, (kk, nn, res) in gemm.items():
+        work[f"gemm_bias_epilogue.{name}"] = (
+            (m * kk + kk * nn + nn + m * nn * (2 if res else 1)) * vb, 2 * m * kk * nn)
+    work.update({"attention_packed": attn, "fused_attention_packed": attn, "fused_attention": attn,
+                 "fused_transformer_block": ((2 * m * d + 12 * d * d + 9 * d) * vb + 4 * d * 4,
+                                             24 * m * d * d + attn[1])})
+    return work
+
+
 def phase_times(torch, np, params, qparams, vitl):
     """Each kernel at the main path's encode batches: the ViT-B/16 image
     block at B=256 and the text block at B=1024; and at the toolkit's
     largest classify bucket, ViT-L/14's image block at B=16 (``vitl``: its
     bf16 and int8 parameters).  Layer 0's weights, and layer 0's int8 layer
-    for K3."""
+    for K3.  K2's kernels and entries are timed twice: in bf16
+    (``kernels``) and in fp32 (``kernels_fp32``, the ``compute_dtype:
+    float32`` path: layer 0's bf16 weights widened, 4-byte bytes and fp32
+    peaks in the bounds, the library calls in fp32)."""
     import torch.nn.functional as F
 
+    from protoclip_tpu_torch.models.clip import cast_params
     from protoclip_tpu_torch.ops import kernels as K
 
     bf16 = torch.bfloat16
@@ -3564,18 +3709,10 @@ def phase_times(torch, np, params, qparams, vitl):
         blk, qb = tparams[tower]["blocks"][0], tqparams[tower]["blocks_q"][0]
         d = blk["attn"]["wo"].shape[0]
         dh = d // h
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        x = torch.randn(b, l, d, device="cuda", generator=g).to(bf16)
-        p = K._block_args(blk, bf16)
-        ln1 = K.layernorm_rows_plain(x, p["ln1s"], p["ln1b"])
-        qkv = K.gemm_bias_epilogue_plain(ln1, p["wqkv"], p["bqkv"], "bias")
-        sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
-        attn = K.fused_attention_packed_plain(*sl, h, causal)
-        hid = K.gemm_bias_epilogue_plain(ln1, p["wfc"], p["bfc"], "bias_gelu")
         m = b * l
         r = {}
 
-        def entry(name, kernel, plain, library, n_bytes, ops, dtype="bfloat16"):
+        def entry(name, kernel, plain, library, n_bytes, ops, dtype="bfloat16", into=r):
             out, ref = kernel(), plain()
             torch.cuda.synchronize()
             bnd, by, by_bytes, by_ops = bound_ms(n_bytes, ops, dtype)
@@ -3585,73 +3722,85 @@ def phase_times(torch, np, params, qparams, vitl):
                     lib_ms = median_ms(torch, library)
                 except RuntimeError as exc:  # the library call does not take this shape
                     lib_note = str(exc).splitlines()[0][:200]
-            r[name] = {
+            into[name] = {
                 "ms": median_ms(torch, kernel), "device_ms": device_ms(torch, kernel),
                 "plain_ms": median_ms(torch, plain),
                 "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by,
                 "bytes_ms": by_bytes, "ops_ms": by_ops, "max_abs_err": _max_abs_err(out, ref),
             }
             if lib_note:
-                r[name]["library_error"] = lib_note
+                into[name]["library_error"] = lib_note
             del out, ref
-
-        entry("layernorm_rows",
-              lambda: K.layernorm_rows(x, p["ln1s"], p["ln1b"]),
-              lambda: K.layernorm_rows_plain(x, p["ln1s"], p["ln1b"]),
-              lambda: F.layer_norm(x, (d,), p["ln1s"].to(x.dtype), p["ln1b"].to(x.dtype)),
-              2 * m * d * 2 + 2 * d * 4, 8 * m * d)
-        gemms = {  # name: (a, w, bias, epilogue, residual)
-            "qkv": (ln1, p["wqkv"], p["bqkv"], "bias", None),
-            "out_proj": (attn, p["wo"], p["bo"], "bias_residual", x),
-            "fc": (ln1, p["wfc"], p["bfc"], "bias_gelu", None),
-            "proj": (hid, p["wproj"], p["bproj"], "bias_residual", x),
-        }
-        for gname, (a, w, bias, epi, res) in gemms.items():
-            kk, nn = w.shape
-            a2, r2 = a.reshape(m, kk), None if res is None else res.reshape(m, nn)
-
-            def library(a2=a2, w=w, bias=bias, epi=epi, r2=r2):
-                y = torch.addmm(bias, a2, w)
-                if epi == "bias_gelu":
-                    return y * torch.sigmoid(1.702 * y)
-                return y if r2 is None else r2 + y
-
-            entry(f"gemm_bias_epilogue.{gname}",
-                  lambda a=a, w=w, bias=bias, epi=epi, res=res: K.gemm_bias_epilogue(a, w, bias, epi, res),
-                  lambda a=a, w=w, bias=bias, epi=epi, res=res: K.gemm_bias_epilogue_plain(a, w, bias, epi, res),
-                  library,
-                  (m * kk + kk * nn + nn + m * nn * (2 if res is not None else 1)) * 2,
-                  2 * m * kk * nn)
 
         def heads(t):
             return t.reshape(b, l, h, dh).transpose(1, 2)
 
-        attn_bytes, attn_flops = 4 * b * l * d * 2, attention_flops(b, l, d, causal)
-        entry("attention_packed",
-              lambda: K.attention_packed(*sl, h, causal),
-              lambda: K.fused_attention_packed_plain(*sl, h, causal),
-              lambda: F.scaled_dot_product_attention(*map(heads, sl), is_causal=causal),
-              attn_bytes, attn_flops)
-        q, k, v = (t.contiguous() for t in sl)
-        entry("fused_attention_packed",
-              lambda: K.fused_attention_packed(q, k, v, h, causal),
-              lambda: K.fused_attention_packed_plain(q, k, v, h, causal),
-              lambda: F.scaled_dot_product_attention(*map(heads, (q, k, v)), is_causal=causal),
-              attn_bytes, attn_flops)
-        qh, kh, vh = (heads(t).contiguous() for t in sl)
-        entry("fused_attention",
-              lambda: K.fused_attention(qh, kh, vh, causal),
-              lambda: K.fused_attention_plain(qh, kh, vh, causal),
-              lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
-              attn_bytes, attn_flops)
-        entry("fused_transformer_block",
-              lambda: K.fused_transformer_block(x, blk, h, causal),
-              lambda: K.fused_transformer_block_plain(x, blk, h, causal),
-              None,
-              (2 * m * d + 12 * d * d + 9 * d) * 2 + 4 * d * 4,
-              24 * m * d * d + attn_flops)
-        del ln1, qkv, hid, q, k, v, qh, kh, vh
-        torch.cuda.empty_cache()
+        attn_flops = attention_flops(b, l, d, causal)
+        r32 = {}
+        for dtype, into in ((torch.float32, r32), (bf16, r)):
+            ops_dt = "float32" if dtype == torch.float32 else "bfloat16"
+            work = k2_work(b, l, d, causal, ops_dt)
+            g = torch.Generator(device="cuda").manual_seed(SEED)
+            x = torch.randn(b, l, d, device="cuda", generator=g).to(dtype)
+            blk_t = cast_params(blk, dtype)
+            p = K._block_args(blk_t, dtype)
+            ln1 = K.layernorm_rows_plain(x, p["ln1s"], p["ln1b"])
+            qkv = K.gemm_bias_epilogue_plain(ln1, p["wqkv"], p["bqkv"], "bias")
+            sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+            attn = K.fused_attention_packed_plain(*sl, h, causal)
+            hid = K.gemm_bias_epilogue_plain(ln1, p["wfc"], p["bfc"], "bias_gelu")
+
+            entry("layernorm_rows",
+                  lambda: K.layernorm_rows(x, p["ln1s"], p["ln1b"]),
+                  lambda: K.layernorm_rows_plain(x, p["ln1s"], p["ln1b"]),
+                  lambda: F.layer_norm(x, (d,), p["ln1s"].to(x.dtype), p["ln1b"].to(x.dtype)),
+                  *work["layernorm_rows"], into=into)
+            gemms = {  # name: (a, w, bias, epilogue, residual)
+                "qkv": (ln1, p["wqkv"], p["bqkv"], "bias", None),
+                "out_proj": (attn, p["wo"], p["bo"], "bias_residual", x),
+                "fc": (ln1, p["wfc"], p["bfc"], "bias_gelu", None),
+                "proj": (hid, p["wproj"], p["bproj"], "bias_residual", x),
+            }
+            for gname, (a, w, bias, epi, res) in gemms.items():
+                kk, nn = w.shape
+                a2, r2 = a.reshape(m, kk), None if res is None else res.reshape(m, nn)
+
+                def library(a2=a2, w=w, bias=bias, epi=epi, r2=r2):
+                    y = torch.addmm(bias, a2, w)
+                    if epi == "bias_gelu":
+                        return y * torch.sigmoid(1.702 * y)
+                    return y if r2 is None else r2 + y
+
+                entry(f"gemm_bias_epilogue.{gname}",
+                      lambda a=a, w=w, bias=bias, epi=epi, res=res: K.gemm_bias_epilogue(a, w, bias, epi, res),
+                      lambda a=a, w=w, bias=bias, epi=epi, res=res: K.gemm_bias_epilogue_plain(a, w, bias, epi, res),
+                      library, *work[f"gemm_bias_epilogue.{gname}"], ops_dt, into=into)
+
+            entry("attention_packed",
+                  lambda: K.attention_packed(*sl, h, causal),
+                  lambda: K.fused_attention_packed_plain(*sl, h, causal),
+                  lambda: F.scaled_dot_product_attention(*map(heads, sl), is_causal=causal),
+                  *work["attention_packed"], ops_dt, into=into)
+            q, k, v = (t.contiguous() for t in sl)
+            entry("fused_attention_packed",
+                  lambda: K.fused_attention_packed(q, k, v, h, causal),
+                  lambda: K.fused_attention_packed_plain(q, k, v, h, causal),
+                  lambda: F.scaled_dot_product_attention(*map(heads, (q, k, v)), is_causal=causal),
+                  *work["fused_attention_packed"], ops_dt, into=into)
+            qh, kh, vh = (heads(t).contiguous() for t in sl)
+            entry("fused_attention",
+                  lambda: K.fused_attention(qh, kh, vh, causal),
+                  lambda: K.fused_attention_plain(qh, kh, vh, causal),
+                  lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+                  *work["fused_attention"], ops_dt, into=into)
+            entry("fused_transformer_block",
+                  lambda: K.fused_transformer_block(x, blk_t, h, causal),
+                  lambda: K.fused_transformer_block_plain(x, blk_t, h, causal),
+                  None, *work["fused_transformer_block"], ops_dt, into=into)
+            del ln1, qkv, hid, q, k, v, qh, kh, vh, blk_t, p
+            if dtype == torch.float32:
+                del x, sl, attn
+            torch.cuda.empty_cache()
 
         # K3: its pieces at the shapes its chain gives them, and the block
         h_q = K.layernorm_quant_rows_plain(x, qb["ln1s"], qb["ln1b"])
@@ -3702,7 +3851,8 @@ def phase_times(torch, np, params, qparams, vitl):
               None,
               2 * m * d * 2 + 12 * d * d + (9 * d + 9 * d + 4 * d) * 4,
               {"int8": 24 * m * d * d, "bfloat16": attn_flops})
-        results[tag] = {"batch": b, "L": l, "D": d, "heads": h, "causal": causal, "kernels": r}
+        results[tag] = {"batch": b, "L": l, "D": d, "heads": h, "causal": causal, "kernels": r,
+                        "kernels_fp32": r32}
         del x, sl, attn
         torch.cuda.empty_cache()
     for tag, res in results.items():
@@ -3712,9 +3862,12 @@ def phase_times(torch, np, params, qparams, vitl):
 
 def phase_encode_times(torch, cfg, params, qparams, rn_cfg, rn_params):
     """Whole-tower encode time at the timing batches, through the kernels:
-    bf16 (K2) and the W8A8 serving mode (K3); and RN50's image tower in bf16
-    (cuDNN convolutions, no kernel of the port)."""
-    from protoclip_tpu_torch.models.clip import encode_image, encode_text
+    bf16 (K2), fp32 (K2 in fp32: the ``compute_dtype: float32`` path, the
+    bf16 weights widened) and the W8A8 serving mode (K3); and RN50's image
+    tower in bf16 (cuDNN convolutions, no kernel of the port).  K2's
+    launches are counted over one fp32 encode of each tower."""
+    from protoclip_tpu_torch.models.clip import cast_params, encode_image, encode_text
+    from protoclip_tpu_torch.ops import kernels as K
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     px = cfg.image_resolution
@@ -3724,12 +3877,31 @@ def phase_encode_times(torch, cfg, params, qparams, rn_cfg, rn_params):
     tokens[torch.arange(1024), torch.randint(2, cfg.context_length, (1024,), device="cuda",
                                               generator=g)] = EOT_ID
     out = {"phase": "encode_times", "image_batch": 256, "text_batch": 1024}
-    for mode, p, ctx in (("bf16", params, contextlib.nullcontext), ("int8", qparams, int8_mode)):
+    params32 = cast_params(params, torch.float32)
+    for mode, p, ctx in (("bf16", params, contextlib.nullcontext),
+                         ("fp32", params32, contextlib.nullcontext), ("int8", qparams, int8_mode)):
+        imgs = images.float() if mode == "fp32" else images
         with ctx(), torch.inference_mode():
-            img_ms = median_ms(torch, lambda: encode_image(p, images, cfg), runs=10)
+            img_ms = median_ms(torch, lambda: encode_image(p, imgs, cfg), runs=10)
             txt_ms = median_ms(torch, lambda: encode_text(p, tokens, cfg), runs=10)
+            if mode == "fp32":
+                for tower, fn in (("image", lambda: encode_image(p, imgs, cfg)),
+                                  ("text", lambda: encode_text(p, tokens, cfg))):
+                    torch.cuda.synchronize()
+                    K.reset_launch_counts()
+                    feats = fn()
+                    torch.cuda.synchronize()
+                    counts = K.launch_counts()
+                    n = cfg.vision_layers if tower == "image" else cfg.transformer_layers
+                    require(feats.dtype == torch.float32 and bool(torch.isfinite(feats).all())
+                            and counts["fused_transformer_block"] == n
+                            and counts["gemm_bias_epilogue"] == 4 * n
+                            and counts["attention_packed"] == n,
+                            f"fp32 {tower} encode: {feats.dtype}, launches {counts}")
+                    out[f"fp32_{tower}_encode_launches"] = {k: n for k, n in counts.items() if n}
         out.update({f"{mode}_image_encode_ms": img_ms, f"{mode}_images_per_s": 256 / img_ms * 1e3,
                     f"{mode}_text_encode_ms": txt_ms, f"{mode}_prompts_per_s": 1024 / txt_ms * 1e3})
+    del params32
     rn_px = rn_cfg.image_resolution
     rn_images = torch.randn(256, rn_px, rn_px, 3, device="cuda", generator=g).to(torch.bfloat16)
     with torch.inference_mode():
@@ -4191,6 +4363,15 @@ def phase_kernels(counts, times, vtimes, serve):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None if None in lib else sum(lib),
         })
+        parts32 = [v for k, v in times["image"]["kernels_fp32"].items()
+                   if k == name or k.startswith(name + ".")]
+        if parts32:  # K2's kernels and entries in fp32, at the same shape
+            lib32 = [pt["library_ms"] for pt in parts32]
+            rows[-1]["fp32"] = {
+                key: sum(pt[key] for pt in parts32)
+                for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+            rows[-1]["fp32"]["library_ms"] = None if None in lib32 else sum(lib32)
+            rows[-1]["fp32"]["max_abs_err"] = max(pt["max_abs_err"] for pt in parts32)
     for row in rows:
         require(row["launches"] > 0, f"{row['name']} was not launched in its run ({row['path']})")
     emit({"kernels": rows})
@@ -4222,6 +4403,7 @@ def main() -> int:
     _, qparams, counts["main_int8"] = phase_main_int8(torch, np, data, ref)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         rn_cfg, rn_setup, counts["runner"], runner_cfg = phase_runner(torch, np, tmp)
+        counts["fp32"] = phase_fp32(torch, np, tmp)
         counts["train"] = phase_train(torch, np, tmp, runner_cfg, rn_setup)
         counts["train_qt"] = phase_train_qt(torch, np, tmp)
         counts["toolkit"], counts["toolkit_int8"], *vitl, clf = phase_toolkit(torch, np, tmp)

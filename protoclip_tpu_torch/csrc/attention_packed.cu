@@ -47,11 +47,31 @@
 // Registers: chip_smoke.py's build phase reports ptxas's count for each
 // instantiation (PERF.md); none spills.
 //
-// fp32 keeps the exact SIMT kernel: tensor cores would round its operands
-// to TF32.  Grid (query tiles of 64 rows, heads, batch); K and V rows below
-// length in shared memory with odd-word row strides; each of 8 warps takes
-// one query row at a time (lane j scores keys j, j+32, ...; the row max
-// and sum are warp shuffles; each lane accumulates dh/32 output columns).
+// fp32 design (exact, on the CUDA cores: tensor cores would round its
+// operands to TF32).  Bound by operations: at L=197, dh=64 a (batch, head)
+// is 4*L^2*dh flops over 16*L*dh bytes, ~200 flops a byte against the ~20
+// flop/byte fp32 ridge.  Grid (query tiles, heads, batch); a block of 8
+// warps takes 64 query rows, warp w rows 8w .. 8w + 7 (a warp past the
+// last tile's rows idles).  Q, scaled by dh^-0.5 in fp32, comes by
+// cp.async into shared memory; K, then V, stream through two 64-key chunk
+// buffers by 16-byte cp.async, the next chunk landing while the current
+// one is used.  Scores are a register-tiled product: each thread holds 4
+// rows x 4 keys (keys kg + 16j) of the 64 x 64 chunk, reads float4s (row
+// stride dh_padded + 4 floats: rows r and r + 4 of Q, and keys kg and
+// kg + 8, fall on distinct banks), writes them into a shared rows x L fp32
+// score tile and keeps each row's running max over its keys (reduced over
+// the half warp that holds the row's keys at the end).  Each warp then
+// takes its own 8 rows side by side: expf(s - max), the sum (lane j over
+// keys j, j + 32, ..., then a butterfly) and the IEEE division by it.  P.V
+// is a second register-tiled product, each thread holding 4 rows x
+// dh_padded/16 columns of the output.  Causal: a warp stops at the keys
+// past its last row, a tile at the keys past its own.  Each score's sum
+// over d and each output's sum over keys run ascending, one fmaf a step,
+// and the row sum in a one-warp-a-row kernel's order, so the bits do not
+// depend on the tiling; keys past a row's last key carry weight 0 and
+// zeroed V rows, so they add nothing.  Shared memory no longer
+// grows with the whole head: ((rows + 128) * (dh_p + 4) + rows * (L_8 + 4))
+// * 4 bytes, 169,984 at L=264, dh=128 (f32_smem_bytes).
 //
 // q, k, v share one (batch, head, row) stride triple and the output has its
 // own, so one kernel serves K1's three packed (B, L, D) tensors (strides
@@ -413,112 +433,327 @@ int launch_mma_mode(int mode, const void* q, const void* k, const void* v, const
                                       s);
 }
 
-// -- fp32: exact SIMT kernel ------------------------------------------------------
+// -- fp32: exact tiled kernel on the CUDA cores -------------------------------------
 
-constexpr int ATT_WARPS = 8;    // warps per block, one query row each at a time
-constexpr int ATT_QTILE = 64;   // query rows per block
-constexpr int KV_PAD = 1;       // makes a K/V row an odd number of 4-byte words
+constexpr int F_CHUNK = 64;      // keys a K or V chunk
+constexpr int F_WARPS = 8;       // warp w owns the tile's query rows 8w .. 8w + 7
+constexpr int F_ROWS = 8 * F_WARPS;  // query rows a block
 
-size_t simt_smem_bytes(int L, int dh) {
-  const size_t kv = (2 * (size_t)L * (dh + KV_PAD) * sizeof(float) + 15) & ~(size_t)15;
-  const size_t lpad = ((size_t)L + 31) & ~(size_t)31;
-  return kv + (size_t)ATT_WARPS * (dh + lpad) * sizeof(float);
+// Row stride (floats) of the score tile: 4 mod 8, so rows r and r + 4 sit
+// 16 banks apart, and every row starts on 16 bytes.
+__host__ __device__ inline int f32_score_stride(int L) { return ((L + 7) & ~7) + 4; }
+
+// The scaled Q tile, two 64-key chunk buffers (row stride the padded head
+// width + 4 floats) and the tile's score rows.
+size_t f32_smem_bytes(int L, int dh) {
+  const size_t qs = padded_dh(dh) + 4;
+  return ((F_ROWS + 2 * F_CHUNK) * qs + F_ROWS * (size_t)f32_score_stride(L)) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attention_f32_simt(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, long long sb, long long sh, long long sr,
-                   float* __restrict__ out, long long osb, long long osh, long long osr, int L,
-                   int dh, int length, int causal, int mode, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ks = dh + KV_PAD;
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + (size_t)L * ks;
-  const size_t kv_bytes = (2 * (size_t)L * ks * sizeof(float) + 15) & ~(size_t)15;
-  const int lpad = (L + 31) & ~31;
-  float* qbuf = reinterpret_cast<float*>(smem + kv_bytes);  // [ATT_WARPS][dh]
-  float* pbuf = qbuf + ATT_WARPS * dh;                       // [ATT_WARPS][lpad]
+// acc[i][c] += p[i] * v[c] over the thread's CW output columns of V row
+// `vr`: columns 4 dg (+ 64) when CW >= 4, 2 dg when CW = 2.
+template <int CW>
+__device__ __forceinline__ void pv_row(float (&acc)[4][CW], const float (&p)[4], const float* vr,
+                                       int dg) {
+  float vv[CW];
+  if constexpr (CW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(vr + 2 * dg);
+    vv[0] = t.x, vv[1] = t.y;
+  } else {
+#pragma unroll
+    for (int h = 0; h < CW / 4; ++h) {
+      const float4 t = *reinterpret_cast<const float4*>(vr + 64 * h + 4 * dg);
+      vv[4 * h] = t.x, vv[4 * h + 1] = t.y, vv[4 * h + 2] = t.z, vv[4 * h + 3] = t.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+}
+
+// s[i][j] = (row r0 + i of Q) . (key kg + 16j of chunk C) for j < nj
+// (FULL: nj = 4, with no branch in the loop), each a sum over d
+// ascending, one fmaf a step.  Rows r and r + 4 of Q, and keys kg and
+// kg + 8 of C, fall on distinct banks (row stride DHP + 4 floats).
+template <int DHP, bool FULL>
+__device__ __forceinline__ void chunk_scores_f32(float (&s)[4][4], const float* Qs, const float* C,
+                                                 int r0, int kg, int nj) {
+  constexpr int QS = DHP + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DHP; d += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(Qs + (r0 + i) * QS + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (FULL || j < nj) {
+        const float4 kv = *reinterpret_cast<const float4*>(C + (kg + 16 * j) * QS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+  }
+}
+
+template <int DHP>
+__global__ void __launch_bounds__(F_WARPS * 32, 2)
+attention_f32_tiled(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, long long sb, long long sh, long long sr,
+                    float* __restrict__ out, long long osb, long long osh, long long osr, int L,
+                    int dh, int length, int causal, int mode, float scale) {
+  constexpr int QS = DHP + 4;    // row stride (floats) of Q and of a K/V chunk
+  constexpr int CW = DHP / 16;   // output columns a thread holds in P.V
+  extern __shared__ __align__(16) float fsm[];
+  const int LS = f32_score_stride(L);
+  constexpr int qt = F_ROWS;          // the tile's query rows: 8 a warp
+  float* Qs = fsm;                    // [qt][QS]: q * scale
+  float* KV = Qs + qt * QS;           // two [64][QS] chunk buffers: K chunks, then V chunks
+  float* S = KV + 2 * F_CHUNK * QS;   // [qt][LS]: scores, then weights
 
   const long long base = blockIdx.z * sb + blockIdx.y * sh;  // this (batch, head)
   const long long obase = blockIdx.z * osb + blockIdx.y * osh;
+  const int q0 = blockIdx.x * qt;
+  const int nrows = min(qt, L - q0);
   const bool no_softmax = mode == ATT_NO_SOFTMAX;
+  const bool causal_on = causal && !no_softmax;
   const int kend = no_softmax ? L : min(L, length);
+  const int kend_tile = causal_on ? min(kend, q0 + nrows) : kend;  // keys any row attends
+  const int nc = (kend_tile + F_CHUNK - 1) / F_CHUNK;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int idx = threadIdx.x; idx < kend * dh; idx += blockDim.x) {
-    const int j = idx / dh, d = idx - j * dh;
-    const long long g = base + j * sr + d;
-    Ks[j * ks + d] = k[g];
-    Vs[j * ks + d] = v[g];
+  // Q rows of the tile by cp.async, in the first chunk's group; each thread
+  // scales the pieces it brought once they land.  Rows past the tile and
+  // columns past dh are zero, as are the chunk buffers' columns past dh,
+  // which cp.async never writes.
+  for (int idx = threadIdx.x; idx < qt * (DHP / 4); idx += blockDim.x) {
+    const int r = idx / (DHP / 4), c = (idx - r * (DHP / 4)) * 4;
+    if (r < nrows && c < dh)
+      cp_async16(Qs + r * QS + c, q + base + (long long)(q0 + r) * sr + c);
+    else
+      *reinterpret_cast<float4*>(Qs + r * QS + c) = zero4;
   }
-  __syncthreads();
+  if (dh < DHP) {
+    const int padp = (DHP - dh) >> 2;
+    for (int idx = threadIdx.x; idx < 2 * F_CHUNK * padp; idx += blockDim.x) {
+      const int r = idx / padp, c = dh + ((idx - r * padp) << 2);
+      *reinterpret_cast<float4*>(KV + r * QS + c) = zero4;
+    }
+  }
+
+  // Chunk t < nc is K's keys 64t.., chunk nc + t is V's, into buffer t % 2.
+  // Rows below kend_tile come by cp.async; V's rows from there up to the
+  // next multiple of 4 are zeroed, so a weight of 0 never meets an unread
+  // value.  Each call commits one group (perhaps empty).
+  auto load_chunk = [&](int t) {
+    if (t < 2 * nc) {
+      const bool is_v = t >= nc;
+      const int kb = (is_v ? t - nc : t) * F_CHUNK;
+      const float* src = (is_v ? v : k) + base;
+      float* dst = KV + (t & 1) * F_CHUNK * QS;
+      const int rows = min(F_CHUNK, kend_tile - kb);
+      // (row, piece) over the padded width: a shift, no division; the
+      // pieces past dh are skipped
+      for (int idx = threadIdx.x; idx < rows * (DHP / 4); idx += blockDim.x) {
+        const int j = idx / (DHP / 4), c = (idx % (DHP / 4)) << 2;
+        if (c < dh) cp_async16(dst + j * QS + c, src + (long long)(kb + j) * sr + c);
+      }
+      if (is_v) {
+        const int zrows = min(F_CHUNK, ((kend_tile + 3) & ~3) - kb) - rows;
+        for (int idx = threadIdx.x; idx < zrows * (DHP / 4); idx += blockDim.x) {
+          const int j = rows + idx / (DHP / 4), c = (idx % (DHP / 4)) << 2;
+          if (c < dh) *reinterpret_cast<float4*>(dst + j * QS + c) = zero4;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // Chunk t has landed and is visible, and every warp is done with chunk
+  // t - 1, whose buffer the next load_chunk(t + 1) then overwrites: one
+  // barrier a chunk.
+  auto chunk_ready = [&]() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  };
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qw = qbuf + warp * dh;
-  float* pw = pbuf + warp * lpad;
-  const int r_end = min(L, (int)(blockIdx.x + 1) * ATT_QTILE);
+  const int r0 = 8 * warp + 4 * (lane >> 4);  // the thread's rows r0 .. r0 + 3
+  const int kg = lane & 15;                    // keys kg + 16j of a chunk; columns of dg = kg
+  const bool warp_on = 8 * warp < nrows;
+  // keys this warp attends: the causal diagonal bounds them by its last row
+  const int kend_w = causal_on ? min(kend_tile, q0 + 8 * warp + 8) : kend_tile;
+  const int jw = (kend_w + 3) & ~3;  // its weights' extent: zero past each row's last key
 
-  for (int r = blockIdx.x * ATT_QTILE + warp; r < r_end; r += ATT_WARPS) {
-    const float* qrow = q + base + r * sr;
-    // ATT_Q_ROUND / ATT_NO_SOFTMAX round q * scale to the activation dtype,
-    // which is fp32 here: the same product
-    for (int d = lane; d < dh; d += 32) qw[d] = qrow[d] * scale;
-    __syncwarp();
-
-    const int jend = (causal && !no_softmax) ? min(kend, r + 1) : kend;
-    float mx = -1e30f;
-    for (int j = lane; j < jend; j += 32) {
-      const float* kr = Ks + j * ks;
-      float s = 0.f;
-      for (int d = 0; d < dh; ++d) s = fmaf(qw[d], kr[d], s);
-      pw[j] = s;
-      mx = fmaxf(mx, s);
+  load_chunk(0);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // Q and chunk 0
+  for (int idx = threadIdx.x; idx < nrows * (DHP / 4); idx += blockDim.x) {
+    const int r = idx / (DHP / 4), c = (idx - r * (DHP / 4)) * 4;
+    if (c < dh) {
+      float4* p = reinterpret_cast<float4*>(Qs + r * QS + c);
+      const float4 x = *p;
+      // ATT_Q_ROUND / ATT_NO_SOFTMAX round q * scale to the activation
+      // dtype, which is fp32 here: the same product
+      *p = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
     }
-    if (no_softmax) {
-      for (int j = lane; j < jend; j += 32) pw[j] = __fmul_rn(pw[j], 0.005f);
+  }
+
+  // 1. scores of keys kb + kg + 16j (j < nj) for rows r0 .. r0 + 3 into the
+  // score tile, and each row's running max over the thread's keys, then
+  // over the 16 threads of its half warp, which hold the keys of its rows
+  float rmax[4] = {-1e30f, -1e30f, -1e30f, -1e30f};
+  for (int t = 0; t < nc; ++t) {
+    chunk_ready();
+    load_chunk(t + 1);
+    const float* C = KV + (t & 1) * F_CHUNK * QS;
+    const int kb = t * F_CHUNK;
+    if (warp_on && kb < kend_w) {
+      const int nj = min(4, (kend_w - kb + 15) >> 4);
+      float s[4][4];
+      if (nj == 4)
+        chunk_scores_f32<DHP, true>(s, Qs, C, r0, kg, 4);
+      else
+        chunk_scores_f32<DHP, false>(s, Qs, C, r0, kg, nj);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = kb + kg + 16 * j;
+        if (j < nj && key < kend_w)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) S[(r0 + i) * LS + key] = s[i][j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int jend = causal_on ? min(kend, q0 + r0 + i + 1) : kend;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nj && kb + kg + 16 * j < jend) rmax[i] = fmaxf(rmax[i], s[i][j]);
+      }
+    }
+  }
+  if (warp_on)  // each row's max over the half warp that holds its keys
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], o));
+
+  // 2. the warp's 8 rows side by side: expf(s - max) with the row max of
+  // the scores, the sum and the IEEE division over the row in fp32, lane j
+  // taking keys j, j + 32, ... (no_softmax: s * 0.005 over all L keys);
+  // weights 0 from a row's last key up to jw.  The warp wrote these rows'
+  // scores itself.
+  if (warp_on) {
+    float mx[8], sum[8];
+    int jend[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      // row u's max: held by lanes 0-15 (u < 4) or 16-31 (u >= 4)
+      mx[u] = __shfl_sync(0xffffffffu, rmax[u & 3], u < 4 ? 0 : 16);
+      const int rl = min(8 * warp + u, nrows - 1);  // rows past the tile: a copy of the last
+      jend[u] = causal_on ? min(kend, q0 + rl + 1) : kend;
+      sum[u] = 0.f;
+    }
+    // branch-free over the 8 rows, so their loads, exps and divisions
+    // interleave; a key past a row's last one reads as 0 and adds nothing
+    float* Sw = S + 8 * warp * LS;
+    if (!no_softmax) {
+      for (int j = lane; j < jw; j += 32) {
+        float e[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float ev = expf(Sw[u * LS + j] - mx[u]);  // past jend: unused
+          e[u] = j < jend[u] ? ev : 0.f;
+          sum[u] += e[u];
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) Sw[u * LS + j] = e[u];
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) sum[u] = pck::warp_sum(sum[u]);
+    }
+    for (int j = lane; j < jw; j += 32) {
+      float w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float x = j < jend[u] ? Sw[u * LS + j] : 0.f;
+        w[u] = no_softmax ? __fmul_rn(x, 0.005f) : x / sum[u];
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) Sw[u * LS + j] = w[u];
+    }
+    __syncwarp();
+  }
+
+  // 3. P.V, each output's sum over keys ascending, one fmaf a step
+  float acc[4][CW];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+  for (int t = nc; t < 2 * nc; ++t) {
+    chunk_ready();
+    load_chunk(t + 1);
+    const float* C = KV + (t & 1) * F_CHUNK * QS;
+    const int kb = (t - nc) * F_CHUNK;
+    if (warp_on && kb < kend_w) {
+      const int jn = min(F_CHUNK, jw - kb);
+#pragma unroll 2
+      for (int jj = 0; jj < jn; jj += 4) {
+        float4 pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pv[i] = *reinterpret_cast<const float4*>(S + (r0 + i) * LS + kb + jj);
+        const float p0[4] = {pv[0].x, pv[1].x, pv[2].x, pv[3].x};
+        const float p1[4] = {pv[0].y, pv[1].y, pv[2].y, pv[3].y};
+        const float p2[4] = {pv[0].z, pv[1].z, pv[2].z, pv[3].z};
+        const float p3[4] = {pv[0].w, pv[1].w, pv[2].w, pv[3].w};
+        const float* vr = C + jj * QS;
+        pv_row<CW>(acc, p0, vr, kg);
+        pv_row<CW>(acc, p1, vr + QS, kg);
+        pv_row<CW>(acc, p2, vr + 2 * QS, kg);
+        pv_row<CW>(acc, p3, vr + 3 * QS, kg);
+      }
+    }
+  }
+
+  if (!warp_on) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rl = r0 + i;
+    if (rl >= nrows) continue;
+    float* orow = out + obase + (long long)(q0 + rl) * osr;
+    if constexpr (CW == 2) {
+      if (2 * kg < dh) *reinterpret_cast<float2*>(orow + 2 * kg) = make_float2(acc[i][0], acc[i][1]);
     } else {
-      mx = pck::warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < jend; j += 32) {
-        const float e = expf(pw[j] - mx);
-        pw[j] = e;
-        sum += e;
-      }
-      sum = pck::warp_sum(sum);
-      for (int j = lane; j < jend; j += 32) pw[j] = pw[j] / sum;
-    }
-    __syncwarp();
-
-    float acc[ATT_MAX_DH / 32];
 #pragma unroll
-    for (int t = 0; t < ATT_MAX_DH / 32; ++t) acc[t] = 0.f;
-    for (int j = 0; j < jend; ++j) {
-      const float p = pw[j];
-      const float* vr = Vs + j * ks;
-#pragma unroll
-      for (int t = 0; t < ATT_MAX_DH / 32; ++t) {
-        const int d = lane + 32 * t;
-        if (d < dh) acc[t] = fmaf(p, vr[d], acc[t]);
+      for (int h = 0; h < CW / 4; ++h) {
+        const int c = 64 * h + 4 * kg;
+        if (c < dh)
+          *reinterpret_cast<float4*>(orow + c) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
       }
     }
-    float* orow = out + obase + r * osr;
-#pragma unroll
-    for (int t = 0; t < ATT_MAX_DH / 32; ++t) {
-      const int d = lane + 32 * t;
-      if (d < dh) orow[d] = acc[t];
-    }
-    __syncwarp();
   }
 }
 
-int launch_simt(const void* q, const void* k, const void* v, const long long* st, void* out,
-                const long long* ost, int B, int L, int H, int dh, int length, int causal,
-                int mode, float scale, cudaStream_t stream) {
-  const size_t smem = simt_smem_bytes(L, dh);
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_simt,
+template <int DHP>
+int launch_f32(const void* q, const void* k, const void* v, const long long* st, void* out,
+               const long long* ost, int B, int L, int H, int dh, int length, int causal,
+               int mode, float scale, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(L, dh);
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_tiled<DHP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + ATT_QTILE - 1) / ATT_QTILE, H, B);
-  attention_f32_simt<<<grid, ATT_WARPS * 32, smem, stream>>>(
+  const dim3 grid((L + F_ROWS - 1) / F_ROWS, H, B);
+  attention_f32_tiled<DHP><<<grid, F_WARPS * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       st[0], st[1], st[2], static_cast<float*>(out), ost[0], ost[1], ost[2], L, dh, length,
       causal, mode, scale);
@@ -550,11 +785,17 @@ extern "C" int attention_packed(int dtype, const void* q, const void* k, const v
     return launch_mma_mode<128>(mode, q, k, v, st, out, ost, B, L, H, dh, length, causal, scale,
                                 s);
   }
-  if (dtype == PCK_F32)
-    return launch_simt(q, k, v, st, out, ost, B, L, H, dh, length, causal, mode, scale, s);
+  if (dtype == PCK_F32) {
+    const int dhp = padded_dh(dh);
+    if (dhp == 32)
+      return launch_f32<32>(q, k, v, st, out, ost, B, L, H, dh, length, causal, mode, scale, s);
+    if (dhp == 64)
+      return launch_f32<64>(q, k, v, st, out, ost, B, L, H, dh, length, causal, mode, scale, s);
+    return launch_f32<128>(q, k, v, st, out, ost, B, L, H, dh, length, causal, mode, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" size_t attention_packed_smem_bytes(int dtype, int L, int dh) {
-  return dtype == PCK_BF16 ? mma_smem_bytes(L, dh) : simt_smem_bytes(L, dh);
+  return dtype == PCK_BF16 ? mma_smem_bytes(L, dh) : f32_smem_bytes(L, dh);
 }

@@ -54,8 +54,24 @@
 // TMA needs 16-byte aligned bases and row strides: the wrapper admits K
 // and N that are multiples of 8 and aligned tensors.
 //
-// fp32 runs a plain SIMT tile (64x64, 4x4 outputs a thread) in exact fp32:
-// the tensor cores would round its operands to TF32.
+// fp32 design: exact fp32 on the CUDA cores (fmaf; the tensor cores would
+// round its operands to TF32), bound by operations (67 TFLOP/s).  The same
+// ring as bf16: a block owns a 128x128 output tile, one producer warp
+// issues the TMA loads of a 4-stage ring (A 128 rows x 32 k, 128-byte
+// swizzled: a K step of 32 fp32 values is one swizzle row; W 32 k x 128
+// columns as four unswizzled 32-column boxes, read as stored, N-contiguous;
+// 32 KB a stage), full barriers count the bytes, empty barriers the 256
+// consumer threads.  Each consumer thread holds an 8x8 patch of outputs in
+// registers (rows 4ty + i and 64 + 4ty + i, columns 4tx + j and 64 + 4tx +
+// j) and reads its fragments as float4s at a base pointer plus an immediate
+// offset: for each 4 k, eight A pieces (one a row, shared by a half warp),
+// and for each k two W pieces (eight consecutive 16-byte pieces of a k row
+// a quarter warp): 64 fmaf for 2 loads, no bank conflict.  One block an SM
+// (registers); a persistent grid and two blocks an SM with no producer warp
+// both measured slower.  Each output's sum over k runs ascending from 0,
+// one fmaf a step (TMA zero-fills K past its end): the plain SIMT order,
+// so the bits do not depend on the tiling.  The epilogue writes 16-byte
+// pieces straight from the registers.
 #include <climits>
 #include <cstdint>
 #include <type_traits>
@@ -291,75 +307,159 @@ int launch_wgmma(const void* a, const void* w, const void* bias, const void* res
   return (int)cudaGetLastError();
 }
 
-// -- fp32: SIMT tile -------------------------------------------------------------
+// -- fp32: CUDA-core tiles fed by TMA ------------------------------------------
 
-constexpr int SBM = 64, SBN = 64, SBK = 16;
+constexpr int FBM = 128, FBN = 128, FBK = 32, F_STAGES = 4;
+constexpr int F_CONSUMERS = 256;                     // 16 x 16 threads, 8 x 8 outputs each
+constexpr int F_THREADS = F_CONSUMERS + 32;          // + one producer warp
+constexpr int FA_BYTES = FBM * FBK * 4;              // 128 rows of 32 k: one 128-byte row each
+constexpr int FW_BOX_BYTES = FBK * 32 * 4;           // one 32-column W box: 32 k rows x 128 B
+constexpr int F_STAGE_BYTES = FA_BYTES + 4 * FW_BOX_BYTES;  // 32 KB
+constexpr int F_SMEM = F_STAGES * F_STAGE_BYTES + 1024;     // + slack to align to 1024
+
+__device__ __forceinline__ float4 lds4(const unsigned char* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
 
 template <int EPI>
-__global__ void __launch_bounds__(256)
-gemm_f32_simt(const float* __restrict__ A, const float* __restrict__ W,
+__global__ void __launch_bounds__(F_THREADS, 1)
+gemm_f32_ring(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
               const float* __restrict__ bias, const float* __restrict__ resid,
               float* __restrict__ out, int M, int N, int K, int epi, int n_tiles) {
-  __shared__ float As[SBK][SBM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[SBK][SBN + 4];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const long m0 = (long)(blockIdx.x / n_tiles) * SBM;
-  const int n0 = (blockIdx.x % n_tiles) * SBN;
-  float acc[4][4] = {};
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[F_STAGES], empty[F_STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const unsigned char* ring = smem_raw + (base - smem_u32(smem_raw));
+  const int n0 = (blockIdx.x % n_tiles) * FBN;
+  const int m0 = (blockIdx.x / n_tiles) * FBM;
+  const int k_tiles = (K + FBK - 1) / FBK;
 
-  for (int k0 = 0; k0 < K; k0 += SBK) {
-    for (int c = threadIdx.x; c < SBM * SBK; c += 256) {
-      const int r = c / SBK, kk = c % SBK;
-      const long gm = m0 + r;
-      const int gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? A[gm * K + gk] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F_STAGES; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), F_CONSUMERS);
     }
-    for (int c = threadIdx.x; c < SBK * SBN; c += 256) {
-      const int kk = c / SBN, nn = c % SBN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      Bs[kk][nn] = (gk < K && gn < N) ? W[(long)gk * N + gn] : 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= F_CONSUMERS) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == F_CONSUMERS) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % F_STAGES;
+        const uint32_t stage = base + s * F_STAGE_BYTES, bar = smem_u32(&full[s]);
+        mbar_wait(smem_u32(&empty[s]), ((kt / F_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar, F_STAGE_BYTES);
+        tma_load_2d(stage, &tm_a, bar, kt * FBK, m0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tma_load_2d(stage + FA_BYTES + j * FW_BOX_BYTES, &tm_w, bar, n0 + 32 * j, kt * FBK);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
+  // Thread (ty, tx) owns rows 4ty + i and 64 + 4ty + i, columns 4tx + j and
+  // 64 + 4tx + j (i, j < 4).  A lands 128-byte swizzled: piece c of row r
+  // at piece c ^ (r % 8).  For the thread's rows r % 8 = 4 (ty % 2) + i % 4,
+  // so piece c sits at (c ^ i % 4) ^ 4 (ty % 2): a compile-time piece moved
+  // by +-64 bytes on odd ty, one of two base pointers a stage plus an
+  // immediate offset.  A half warp reads one A piece a row (a broadcast);
+  // rows r and r + 4 of its two halves fall on distinct banks.  W lands
+  // unswizzled, k row after k row of each 32-column box, and a quarter warp
+  // reads 8 consecutive pieces of one row: no bank conflict either.
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int a_row = 512 * ty, a_flip = 64 * (ty & 1);
+  const int w_col = (tx >> 3) * FW_BOX_BYTES + (tx & 7) * 16;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % F_STAGES;
+    const unsigned char* As = ring + s * F_STAGE_BYTES;
+    const unsigned char* a_up = As + a_row + a_flip;    // pieces 0-3 land here on odd ty
+    const unsigned char* a_down = As + a_row - a_flip;  // pieces 4-7
+    const unsigned char* Ws = As + FA_BYTES + w_col;
+    mbar_wait(smem_u32(&full[s]), (kt / F_STAGES) & 1);
+#pragma unroll
+    for (int c = 0; c < FBK / 4; ++c) {  // 4 k at a time: one A piece a row
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int piece = c ^ (i & 3);
+        const int offset = ((i >> 2) * 64 + (i & 3)) * 128 + piece * 16;
+        a[i] = lds4((piece < 4 ? a_up : a_down) + offset);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = 4 * c + kk;
+        const float4 b0 = lds4(Ws + k * 128);
+        const float4 b1 = lds4(Ws + 2 * FW_BOX_BYTES + k * 128);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        // each output's sum over k ascending, one fmaf a step
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float ai = lane_of(a[i], kk);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ai, b[j], acc[i][j]);
+        }
+      }
+    }
+    mbar_arrive(smem_u32(&empty[s]));
+  }
+
+  // Epilogue: 16-byte pieces straight from the registers; a half warp
+  // writes two 256-byte row segments.  N is a multiple of 8, so a piece of
+  // 4 columns is wholly in or out.
   const bool res_on = has_residual<EPI>(epi);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long gm = m0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const long gm = (long)m0 + (i >> 2) * 64 + 4 * ty + (i & 3);
+    if (gm >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gm < M && gn < N) {
-        const long idx = gm * N + gn;
-        const float y = epilogue_value<float, EPI>(acc[i][j], epi, bias[gn]);
-        out[idx] = res_on ? add_residual(resid[idx], y) : y;
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + 64 * h + 4 * tx;
+      if (gn >= N) continue;
+      const float4 bb = *reinterpret_cast<const float4*>(bias + gn);
+      float4 y = make_float4(epilogue_value<float, EPI>(acc[i][4 * h], epi, bb.x),
+                             epilogue_value<float, EPI>(acc[i][4 * h + 1], epi, bb.y),
+                             epilogue_value<float, EPI>(acc[i][4 * h + 2], epi, bb.z),
+                             epilogue_value<float, EPI>(acc[i][4 * h + 3], epi, bb.w));
+      const long g = gm * N + gn;
+      if (res_on) {
+        const float4 rv = *reinterpret_cast<const float4*>(resid + g);
+        y = make_float4(add_residual(rv.x, y.x), add_residual(rv.y, y.y),
+                        add_residual(rv.z, y.z), add_residual(rv.w, y.w));
       }
+      *reinterpret_cast<float4*>(out + g) = y;
     }
   }
 }
 
 template <int EPI>
-int launch_simt(const void* a, const void* w, const void* bias, const void* resid, void* out,
-                int M, int N, int K, int epi, cudaStream_t s) {
-  const long long n_tiles = (N + SBN - 1) / SBN;
-  const long long tiles = n_tiles * ((M + SBM - 1) / SBM);
+int launch_f32(const void* a, const void* w, const void* bias, const void* resid, void* out,
+               int M, int N, int K, int epi, cudaStream_t s) {
+  CUtensorMap tm_a, tm_w;
+  if (!make_map(&tm_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a, K, M, FBM) ||
+      !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w, N, K, FBK,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (N + FBN - 1) / FBN;
+  const long long tiles = n_tiles * ((M + FBM - 1) / FBM);
   if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  gemm_f32_simt<EPI><<<(unsigned)tiles, 256, 0, s>>>(
-      static_cast<const float*>(a), static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(resid), static_cast<float*>(out), M, N, K, epi, (int)n_tiles);
+  cudaError_t err = cudaFuncSetAttribute(gemm_f32_ring<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  gemm_f32_ring<EPI><<<(unsigned)tiles, F_THREADS, F_SMEM, s>>>(
+      tm_a, tm_w, static_cast<const float*>(bias), static_cast<const float*>(resid),
+      static_cast<float*>(out), M, N, K, epi, (int)n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -367,7 +467,7 @@ template <int EPI>
 int launch(int dtype, const void* a, const void* w, const void* bias, const void* resid,
            void* out, int M, int N, int K, int epi, cudaStream_t s) {
   return dtype == PCK_BF16 ? launch_wgmma<EPI>(a, w, bias, resid, out, M, N, K, epi, s)
-                           : launch_simt<EPI>(a, w, bias, resid, out, M, N, K, epi, s);
+                           : launch_f32<EPI>(a, w, bias, resid, out, M, N, K, epi, s);
 }
 
 }  // namespace

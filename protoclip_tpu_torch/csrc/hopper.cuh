@@ -104,9 +104,11 @@ inline EncodeTiled encode_tiled() {
 
 // A row-major matrix (outer, inner) of `elem_bytes`-byte elements, read in
 // boxes of (box_outer, box_inner), box_inner * elem_bytes = 128 bytes: the
-// swizzle's width.  Reads beyond the matrix are zero-filled.
+// swizzle's width (by default the 128-byte swizzle; a box may also land
+// unswizzled, row after row).  Reads beyond the matrix are zero-filled.
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem_bytes,
-                     const void* ptr, uint64_t inner, uint64_t outer, uint32_t box_outer) {
+                     const void* ptr, uint64_t inner, uint64_t outer, uint32_t box_outer,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {inner, outer};
@@ -114,7 +116,7 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem_b
   const cuuint32_t box[2] = {128 / elem_bytes, box_outer};
   const cuuint32_t elem[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

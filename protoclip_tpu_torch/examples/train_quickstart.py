@@ -29,7 +29,8 @@ import tempfile
 import numpy as np
 
 # CLIP's vocabulary: the banks pad prompt batches with its EOT id 49407, which
-# the port's text tower refuses past the table (JAX's gather clamps it)
+# then has a row of its own, as in CLIP's weights (past a smaller table both
+# packages' text towers clamp it to the last row)
 CLIP_VOCAB = 49408
 
 

@@ -19,20 +19,16 @@ def apply_text(params: Dict, tokens: torch.Tensor, cfg,
     The sequence feature is taken at the EOT position: the argmax token id,
     since EOT is the largest id in any sequence.
 
-    An id past the token embedding's rows raises ``ValueError``.  JAX's
-    gather clamps it to the last row, so a JAX checkpoint with a vocabulary
-    smaller than CLIP's still takes the banks' EOT padding (49407); the
-    port refuses it here rather than index past the table (an
-    ``IndexError`` on the CPU, a device assert on the card).
+    An id past the token embedding's rows takes the last row, as JAX's
+    gather clamps it (``protoclip_tpu/models/text.py:23``), so a checkpoint
+    with a vocabulary smaller than CLIP's still takes the banks' EOT
+    padding (49407); the EOT position is still the argmax of the ids as
+    given.  No host sync: the clamp runs on the device.
     """
     dtype = params["token_embedding"].dtype
     tokens = tokens.long()
-    vocab = params["token_embedding"].shape[0]
-    top = int(tokens.max()) if tokens.numel() else -1
-    if top >= vocab:
-        raise ValueError(f"token id {top} is past the {vocab}-row token embedding; "
-                         "CLIP's tokenizer and the banks' padding need 49408 rows")
-    x = params["token_embedding"][tokens] + params["positional_embedding"].to(dtype)
+    rows = tokens.clamp(max=params["token_embedding"].shape[0] - 1)
+    x = params["token_embedding"][rows] + params["positional_embedding"].to(dtype)
     x = transformer(x, params["blocks"], cfg.transformer_heads, causal=True,
                     qblocks=params.get("blocks_q"), int8=int8)
     x = layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])

@@ -66,14 +66,14 @@ def build(source: Path, define: Optional[str] = None,
     return dll
 
 
-def median_ms(fn) -> float:
+def median_ms(fn, runs: int = RUNS) -> float:
     """Median CUDA-event time of one call queued behind a spinning kernel,
     so the host's launch overhead is hidden: the device's time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
@@ -81,7 +81,7 @@ def median_ms(fn) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return sorted(times)[RUNS // 2]
+    return sorted(times)[runs // 2]
 
 
 def main(argv=None) -> dict:

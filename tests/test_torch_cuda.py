@@ -352,20 +352,23 @@ def _packed_and_heads(qkv, h):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64, 128])
 @pytest.mark.parametrize("L,causal", [(1, False), (16, False), (17, False), (77, True),
-                                      (197, False), (257, False)])
+                                      (197, False), (257, False), (264, False)])
 def test_cuda_attention_edges_match_plain(cuda_device, L, causal, dh):
-    """The tensor-core attention's edges: a single row, one and a bit of a
-    16-key tile, the text block's causal L, the image lengths, dh padded to
-    32/64/128, a length below L, both bench modes, and all three stride
-    layouts (QKV slices, packed K1, head-major K4)."""
+    """The attention's edges, in bf16 (tensor cores) and fp32 (the tiled
+    CUDA-core kernel): a single row, one and a bit of a 16-key tile, the
+    text block's causal L, the image lengths and the bench's ViT-L/14 264
+    (fp32: one to five 64-row query tiles and 64-key chunks, L = 257 at
+    dh = 128 included), dh padded to 32/64/128, a length below L, both
+    bench modes, and all three stride layouts (QKV slices, packed K1,
+    head-major K4); each call counted once under its entry and mode."""
     H = 2
     g = torch.Generator(device=cuda_device).manual_seed(L * 1000 + dh)
+    kernels.reset_launch_counts()
+    lengths = sorted({L, max(1, L - 5)})
     for dtype in (torch.bfloat16, torch.float32):
-        if dtype == torch.float32 and L == 257 and dh == 128:
-            continue  # beyond the exact fp32 kernel's shared memory
         qkv = torch.randn(3, L, 3 * H * dh, device=cuda_device, generator=g).to(dtype)
         sl, packed, heads = _packed_and_heads(qkv, H)
-        for length in sorted({L, max(1, L - 5)}):
+        for length in lengths:
             for mode in ("softmax", "q_round", "no_softmax"):
                 _assert_close(kernels.attention_packed(*sl, H, causal, length, mode),
                               kernels.fused_attention_packed_plain(*sl, H, causal, length, mode),
@@ -374,6 +377,11 @@ def test_cuda_attention_edges_match_plain(cuda_device, L, causal, dh):
                       kernels.fused_attention_packed_plain(*packed, H, causal), dtype)
         _assert_close(kernels.fused_attention(*heads, causal),
                       kernels.fused_attention_plain(*heads, causal), dtype)
+    counts = kernels.launch_counts()
+    assert counts["attention_packed"] == 2 * (3 * len(lengths) + 1)
+    assert counts["attention_packed.q_round"] == counts["attention_packed.no_softmax"] == \
+        2 * len(lengths)
+    assert counts["fused_attention_packed"] == 2 and counts["fused_attention"] == 2
 
 
 # the int8 attention core's edges: one row, a 16-row warp tile and one past
@@ -432,6 +440,73 @@ def test_cuda_gemm_ragged_edges_match_plain(cuda_device, dtype, epilogue):
     out = kernels.gemm_bias_epilogue(a, w, bias, epilogue, res)
     assert out.shape == (8, 197, n) and a.numel() // k == m
     _assert_close(out, kernels.gemm_bias_epilogue_plain(a, w, bias, epilogue, res), dtype)
+
+
+# the fp32 GEMM's edges (128 x 128 tiles, 32-deep K steps): one row, 7 rows
+# and a ragged 8 x 197; K under one 32-value swizzle row, ragged, and the
+# proj width; N one 8-column piece, a tile and a half, ViT-B/16's QKV width
+FP32_EDGE_M = (1, 7, 8 * 197)
+FP32_EDGE_K = (8, 200, 3072)
+FP32_EDGE_N = (8, 192, 2304)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["bias", "bias_residual", "bias_gelu", "bias_gelu_bf16",
+                                      "bias32_residual"])
+def test_cuda_fp32_gemm_edges_match_plain(cuda_device, epilogue):
+    """The fp32 GEMM where M, K and N are not multiples of its tile (TMA
+    zero-fills the reads past them, the epilogue masks the writes), each
+    epilogue with its residual, at the fp32 bars; each call counted once,
+    and once more under a bench epilogue's own name."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    kernels.reset_launch_counts()
+    calls = 0
+    for m in FP32_EDGE_M:
+        for k in FP32_EDGE_K:
+            for n in FP32_EDGE_N:
+                a = torch.randn(m, k, device=cuda_device, generator=g)
+                w = torch.randn(k, n, device=cuda_device, generator=g) * k ** -0.5
+                bias = torch.randn(n, device=cuda_device, generator=g) * 0.1
+                res = (torch.randn(m, n, device=cuda_device, generator=g)
+                       if epilogue in ("bias_residual", "bias32_residual") else None)
+                out = kernels.gemm_bias_epilogue(a, w, bias, epilogue, res)
+                assert out.shape == (m, n) and out.dtype == torch.float32
+                _assert_close(out, kernels.gemm_bias_epilogue_plain(a, w, bias, epilogue, res),
+                              torch.float32)
+                calls += 1
+    counts = kernels.launch_counts()
+    assert counts["gemm_bias_epilogue"] == calls
+    if epilogue in ("bias_gelu_bf16", "bias32_residual"):
+        assert counts["gemm_bias_epilogue." + epilogue] == calls
+
+
+def backbone_attention_shapes():
+    """(backbone, tower, L, head dim) of every transformer a backbone runs
+    K2 on: the text tower, and the image tower of the ViTs."""
+    from protoclip_tpu_torch.models import BACKBONE_CONFIGS
+
+    shapes = []
+    for name, cfg in BACKBONE_CONFIGS.items():
+        shapes.append((name, "text", cfg.context_length,
+                       cfg.transformer_width // cfg.transformer_heads))
+        if cfg.is_vit:
+            grid = cfg.image_resolution // cfg.vision_patch_size
+            shapes.append((name, "image", grid * grid + 1, cfg.vision_width // cfg.vision_heads))
+    return shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone,tower,L,dh", backbone_attention_shapes())
+def test_cuda_fp32_attention_smem_fits_every_backbone(cuda_device, backbone, tower, L, dh):
+    """The fp32 attention's shared memory, as the C entry reports it to the
+    wrapper's guard, fits one block's opt-in 232,448 bytes at every
+    backbone tower: it grows with L only through the 64 x L score tile
+    (169,984 bytes at the kernel's stated L = 264, dh = 128)."""
+    from protoclip_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    assert lib.attention_packed_smem_bytes(0, L, dh) <= kernels.SMEM_PER_BLOCK
+    assert lib.attention_packed_smem_bytes(0, 264, 128) == 169_984
 
 
 # the int8 GEMM's edges: one row and a ragged 8 x 197; K from one 16-byte

@@ -121,20 +121,21 @@ def test_text_eot_gather(tiny):
 
 
 def test_text_refuses_ids_that_jax_clamps(tiny, rng):
-    """A deliberate difference (ROADMAP.md section 3): a row of the banks'
-    EOT padding at CLIP's id 49407, past the tiny vocab.  JAX's gather
-    clamps it to the last row; the port raises instead of indexing past
-    the table."""
+    """Ids past the tiny vocab, as the banks' EOT padding at CLIP's id 49407
+    gives them: the port clamps them to the last row, as JAX's gather does,
+    and takes the EOT position at the argmax of the ids as given, so its
+    encode_text equals JAX's (the name predates the repair: the port used
+    to raise here)."""
     jparams, cfg, params = tiny
-    tokens = tiny_tokens(rng, 2, TINY_VIT.context_length, TINY_VIT.vocab_size)
+    tokens = tiny_tokens(rng, 3, TINY_VIT.context_length, TINY_VIT.vocab_size)
     tokens[1] = 49407
+    tokens[2, 8] = TINY_VIT.vocab_size + 5  # a stray id past the table after row 2's EOT
     clamped = np.minimum(tokens, TINY_VIT.vocab_size - 1)
-    np.testing.assert_array_equal(
-        np.asarray(jclip.encode_text(jparams, jnp.asarray(tokens), TINY_VIT)),
-        np.asarray(jclip.encode_text(jparams, jnp.asarray(clamped), TINY_VIT)))
-    with pytest.raises(ValueError, match="token id 49407 is past the 128-row token embedding"):
-        clip.encode_text(params, torch.from_numpy(tokens), cfg)
-    clip.encode_text(params, torch.from_numpy(clamped), cfg)  # in range: no error
+    # the EOT position is the argmax of the ids as given, not of the clamped ones
+    assert np.argmax(tokens[2]) == 8 and np.argmax(clamped[2]) == 6
+    want = np.asarray(jclip.encode_text(jparams, jnp.asarray(tokens), TINY_VIT))
+    got = clip.encode_text(params, torch.from_numpy(tokens), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_transformer_with_explicit_mask_matches_jax(rng):

@@ -447,7 +447,8 @@ def test_quant_rows_width_rule(w, offset, match):
 
 def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
     """chip_smoke.py's build line reports registers and spills per template
-    instantiation of the tensor-core kernels, from nvcc's -Xptxas -v."""
+    instantiation of the tensor-core kernels and of the fp32 GEMM and
+    attention, from nvcc's -Xptxas -v; other kernels are left out."""
     import chip_smoke
 
     log = "\n".join([
@@ -462,6 +463,15 @@ def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
         "ptxas info    : Used 90 registers, used 2 barriers, 48 bytes smem",
         "ptxas info    : Compiling entry function '_ZN54_gemm_f32_simtILi4EEEv' for 'sm_90a'",
         "ptxas info    : Used 70 registers, used 1 barriers, 8704 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__659883fd_21_gemm_bias_"
+        "epilogue_cu_a59d695713gemm_f32_ringILin1EEEv14CUtensorMap_stS0_PKfS2_Pfiiiii' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 64 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__7efae599_19_attention_"
+        "packed_cu_b6d57c5319attention_f32_tiledILi128EEEvPKfS1_S1_xxxPfxxxiiiiiif' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers",
         # the s8 GEMM is templated on its activation type, then its epilogue
         "ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__0c3e5b7a_21_gemm_int8_"
         "epilogue_cu_9f1e2d3a13gemm_s8_wgmmaI13__nv_bfloat16Li1EEEv14CUtensorMap_stS1_PKfS3_S3_"
@@ -477,6 +487,8 @@ def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
     assert chip_smoke.ptxas_usage(log) == {
         "attention_bf16_mma<64,1>": {"registers": 128, "spill_bytes": 0},
         "gemm_bf16_wgmma<-1>": {"registers": 90, "spill_bytes": 4},
+        "gemm_f32_ring<-1>": {"registers": 168, "spill_bytes": 0},
+        "attention_f32_tiled<128>": {"registers": 96, "spill_bytes": 0},
         "gemm_s8_wgmma<__nv_bfloat16,1>": {"registers": 104, "spill_bytes": 0},
         "gemm_s8_wgmma<float,2>": {"registers": 98, "spill_bytes": 0},
     }
