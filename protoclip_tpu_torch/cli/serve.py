@@ -30,9 +30,17 @@ Protocol (JSON; images are base64-encoded JPEG/PNG bytes)::
                                -> {"classnames": [[...], ...],
                                    "scores": [[...], ...]}
 
-    GET  /statz                -> micro-batcher dispatch statistics
+    GET  /statz                -> micro-batcher dispatch statistics, and
+                                  each route's span totals under "spans"
     GET  /metrics              -> the same + HTTP response counters in
                                   Prometheus text exposition format
+
+Spans (``obs.profiler``, labelled with the route): ``serve.parse`` (the
+body read and ``json.loads``; bytes), ``serve.decode`` (decode and
+preprocess; images), ``serve.respond`` (``json.dumps`` and the write;
+bytes), and the micro-batcher's ``batch.queue_wait`` and
+``batch.dispatch``; one request id for the spans of one HTTP request.
+Their totals are cumulative: difference them over a window.
 
 Errors are JSON ``{"error": ...}``: 400 bad payload/negative length, 404
 unknown route (lists available routes), 411 missing/unparseable
@@ -67,6 +75,8 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
+
+from protoclip_tpu_torch.obs import profiler
 
 
 def _decode_images(payload: dict, draft_px: Optional[int] = None) -> list:
@@ -108,14 +118,15 @@ def _preprocess_block(payload: dict, n_px: int, pool, fast_decode: bool):
 
     from protoclip_tpu_torch.data.transforms import clip_preprocess
 
-    imgs = _decode_images(payload, n_px if fast_decode else None)
-    block = np.zeros((len(imgs), n_px, n_px, 3), np.uint8)
-
     def prep(i_img):
         i, img = i_img
         block[i] = clip_preprocess(img, n_px)
 
-    list(pool.map(prep, enumerate(imgs)))
+    with profiler.span("serve.decode") as decode:
+        imgs = _decode_images(payload, n_px if fast_decode else None)
+        block = np.zeros((len(imgs), n_px, n_px, 3), np.uint8)
+        list(pool.map(prep, enumerate(imgs)))
+        decode.rows = len(imgs)
     return block
 
 
@@ -190,7 +201,7 @@ def make_mesh_encode_route(
         run, batch, (n_px, n_px, 3), np.uint8,
         max_wait_s=max(0.0, coalesce_ms) / 1e3,
         # one fixed global shape: every shard's batch stays the same
-        trim_underfull=False,
+        trim_underfull=False, label="/encode",
     )
 
     def route(payload: dict) -> dict:
@@ -244,7 +255,7 @@ def make_encode_route(
         max_wait_s=max(0.0, coalesce_ms) / 1e3,
         # bucketed bundle: hand the batcher's underfull dispatches to the
         # smallest bucket instead of padding to the largest
-        trim_underfull=len(buckets) > 1,
+        trim_underfull=len(buckets) > 1, label="/encode",
     )
 
     def route(payload: dict) -> dict:
@@ -312,7 +323,7 @@ def make_classify_route(
         max_wait_s=max(0.0, coalesce_ms) / 1e3,
         # bucketed classifier: infer_canvases pads trimmed underfull
         # dispatches to its smallest bucket
-        trim_underfull=len(buckets) > 1,
+        trim_underfull=len(buckets) > 1, label="/classify",
     )
 
     def route(payload: dict) -> dict:
@@ -346,11 +357,19 @@ _MAX_BODY = 256 << 20  # 256 MB request-body cap
 _GET_PATHS = ("/healthz", "/statz", "/metrics")
 
 
+def span_totals(route: str) -> dict:
+    """``{span: {"count", "total_ms", "rows", "bytes"}}`` of the spans
+    labelled ``route``, cumulative since the process started."""
+    return {name: {"count": count, "total_ms": ns / 1e6, "rows": rows, "bytes": nbytes}
+            for (name, label), (count, ns, rows, nbytes) in sorted(profiler.totals().items())
+            if label == route}
+
+
 def render_prometheus(routes: Dict[str, Callable], counters: Dict) -> str:
     """Prometheus text exposition (format 0.0.4) of the serving metrics:
     HTTP responses by route/status, and per-route micro-batcher dispatch
-    counters, batch fill, and dispatch-latency quantiles.  The metric names
-    are the JAX server's."""
+    counters, batch fill, and dispatch-latency quantiles (the JAX server's
+    metric names), and each route's span totals (the port's own)."""
     lines = [
         "# HELP protoclip_http_responses_total HTTP responses by route and status code.",
         "# TYPE protoclip_http_responses_total counter",
@@ -397,6 +416,16 @@ def render_prometheus(routes: Dict[str, Callable], counters: Dict) -> str:
                     f'protoclip_dispatch_latency_ms{{route="{path}",'
                     f'quantile="{quantile}"}} {stats[key]}'
                 )
+    spans = {path: span_totals(path) for path, _ in batched}
+    for name, help_, value in (
+            ("protoclip_span_seconds_total", "Seconds in each span of a route.",
+             lambda t: t["total_ms"] / 1e3),
+            ("protoclip_spans_total", "Spans closed, by route and span.",
+             lambda t: t["count"])):
+        lines += [f"# HELP {name} {help_}", f"# TYPE {name} counter"]
+        for path, by_span in spans.items():
+            for span_name, total in by_span.items():
+                lines.append(f'{name}{{route="{path}",span="{span_name}"}} {value(total)}')
     return "\n".join(lines) + "\n"
 
 
@@ -423,7 +452,8 @@ class _Handler(BaseHTTPRequestHandler):
             key = (label, code)
             self.counters[key] = self.counters.get(key, 0) + 1
 
-    def _send(self, code: int, obj: dict) -> None:
+    def _send(self, code: int, obj: dict) -> int:
+        """Send ``obj`` as JSON; returns the body's length."""
         self._count(code)
         body = json.dumps(obj).encode()
         self.send_response(code)
@@ -431,6 +461,12 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+        return len(body)
+
+    def _respond(self, code: int, obj: dict) -> None:
+        """:meth:`_send` as the request's ``serve.respond`` span."""
+        with profiler.span("serve.respond") as respond:
+            respond.nbytes = self._send(code, obj)
 
     def _send_text(self, code: int, text: str) -> None:
         self._count(code)
@@ -512,7 +548,7 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send(200, {"status": "ok", **self.info})
         elif self.path == "/statz":
             stats = {
-                path: route.batcher.stats
+                path: dict(route.batcher.stats, spans=span_totals(path))
                 for path, route in self.routes.items()
                 if getattr(route, "batcher", None) is not None
             }
@@ -530,24 +566,29 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(404, {"error": f"no route {self.path}",
                              "routes": sorted(self.routes)})
             return
+        with profiler.request(self.path):
+            self._post(route)
+
+    def _post(self, route: Callable[[dict], dict]) -> None:
         try:
             try:
                 length = int(self.headers.get("Content-Length", ""))
             except ValueError:
-                self._send(411, {"error": "Content-Length required"})
+                self._respond(411, {"error": "Content-Length required"})
                 return
             if length < 0:
-                self._send(400, {"error": "negative Content-Length"})
+                self._respond(400, {"error": "negative Content-Length"})
                 return
             if length > _MAX_BODY:
-                self._send(413, {"error": f"body exceeds {_MAX_BODY} bytes"})
+                self._respond(413, {"error": f"body exceeds {_MAX_BODY} bytes"})
                 return
-            payload = json.loads(self.rfile.read(length) or b"{}")
-            self._send(200, route(payload))
+            with profiler.span("serve.parse", nbytes=length):
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            self._respond(200, route(payload))
         except ValueError as exc:
-            self._send(400, {"error": str(exc)})
+            self._respond(400, {"error": str(exc)})
         except Exception as exc:  # noqa: BLE001 — surface, don't crash the server
-            self._send(500, {"error": f"{type(exc).__name__}: {exc}"})
+            self._respond(500, {"error": f"{type(exc).__name__}: {exc}"})
 
     def log_message(self, fmt: str, *args) -> None:
         if not self.quiet:

@@ -17,6 +17,7 @@ import numpy as np
 
 from protoclip_tpu_torch.data.transforms import EvalTransform, load_image
 from protoclip_tpu_torch.data.types import Datum
+from protoclip_tpu_torch.obs.profiler import span
 
 
 class BatchLoader:
@@ -130,6 +131,9 @@ class ArrayLoader:
             labs = self.labels[start:start + bs]
             n_valid = len(imgs)
             if self.pad_last and n_valid < bs:
-                imgs = np.concatenate([imgs, np.zeros((bs - n_valid, *imgs.shape[1:]), imgs.dtype)])
-                labs = np.concatenate([labs, np.zeros((bs - n_valid,), labs.dtype)])
+                with span("loader.pad", rows=bs - n_valid) as pad:
+                    imgs = np.concatenate([imgs, np.zeros((bs - n_valid, *imgs.shape[1:]),
+                                                          imgs.dtype)])
+                    labs = np.concatenate([labs, np.zeros((bs - n_valid,), labs.dtype)])
+                    pad.nbytes = imgs.nbytes
             yield imgs, labs, n_valid

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from protoclip_tpu_torch.memory.cache import FeatureCache
+from protoclip_tpu_torch.obs.profiler import span
 from protoclip_tpu_torch.tokenizer import EOT_ID, tokenize
 
 
@@ -47,7 +48,11 @@ def encode_loader(
     normalize: bool = False,
     progress: Optional[str] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Encode every item in a loader -> (features fp32 (M, d), labels (M,))."""
+    """Encode every item in a loader -> (features fp32 (M, d), labels (M,)).
+
+    Spans: ``encode_loader`` (rows: valid rows) around the whole, and
+    ``encode_loader.readback`` (rows: the batch's valid rows) around each
+    batch's copy to the host, where the host waits for the card."""
     feats: List[np.ndarray] = []
     labels: List[np.ndarray] = []
     iterator = loader
@@ -58,14 +63,18 @@ def encode_loader(
             iterator = tqdm(loader, total=len(loader), desc=progress)
         except ImportError:  # pragma: no cover
             pass
-    for images, batch_labels, n_valid in iterator:
-        batch = _to_numpy(encode_fn(images))[:n_valid]
-        if normalize:
-            # same math as ops.proto.l2_normalize (x / ||x||, no eps)
-            batch = batch / np.linalg.norm(batch, axis=-1, keepdims=True)
-        feats.append(batch)
-        labels.append(np.asarray(batch_labels[:n_valid]))
-    return np.concatenate(feats), np.concatenate(labels)
+    with span("encode_loader") as whole:
+        for images, batch_labels, n_valid in iterator:
+            out = encode_fn(images)
+            with span("encode_loader.readback", rows=n_valid):
+                batch = _to_numpy(out)[:n_valid]
+            if normalize:
+                # same math as ops.proto.l2_normalize (x / ||x||, no eps)
+                batch = batch / np.linalg.norm(batch, axis=-1, keepdims=True)
+            feats.append(batch)
+            labels.append(np.asarray(batch_labels[:n_valid]))
+            whole.rows += n_valid
+        return np.concatenate(feats), np.concatenate(labels)
 
 
 def _orient_rows(mat: np.ndarray, n_rows: int) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Observability: metric logging (TensorBoard-compatible), the alpha/beta
-sweep plots, and profiling helpers."""
+sweep plots, and profiling helpers and spans."""
 
 from protoclip_tpu_torch.obs.logging import MetricLogger
-from protoclip_tpu_torch.obs.profiler import timed, trace_to
+from protoclip_tpu_torch.obs.profiler import span, timed, trace_to
 
-__all__ = ["MetricLogger", "timed", "trace_to"]
+__all__ = ["MetricLogger", "span", "timed", "trace_to"]

@@ -15,6 +15,12 @@ the card every layer of a ViT image tower is the fused block K2 (K3 under
 (PIL) to the backbone's resolution, and each call is zero-padded to a
 batch bucket: the buckets keep the JAX API and its row-independence
 contract, and are the fixed shapes a captured serving path can reuse.
+
+Spans (``obs.profiler``): ``classify`` around ``classify_objects``, with
+``classify.preprocess`` (rows: crops); ``infer.issue`` (rows: the bucket)
+from the pad to the bucket until the last launch of the top-k returns, and
+``infer.readback`` (rows: valid rows), the copies to the host, where the
+host waits for the card.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from protoclip_tpu_torch.data.transforms import clip_preprocess, normalize_batch
 from protoclip_tpu_torch.device import DeviceLike, resolve_device
 from protoclip_tpu_torch.io.checkpoint import checkpoint_paths, load_checkpoint_triple
 from protoclip_tpu_torch.models import adapter_from_torch_state, encode_image, load_clip
+from protoclip_tpu_torch.obs.profiler import span
 from protoclip_tpu_torch.ops.proto import l2_normalize
 
 
@@ -138,9 +145,10 @@ class ProtoClipClassifier:
         # no truncation here: classify_objects raises for n > max_batch and
         # infer_canvases re-validates — a silent slice would misalign rows
         # with the caller's crop list
-        out = np.zeros((len(crops), n_px, n_px, 3), np.uint8)
-        for i, crop in enumerate(crops):
-            out[i] = clip_preprocess(Image.fromarray(np.asarray(crop)), n_px)
+        with span("classify.preprocess", rows=len(crops)):
+            out = np.zeros((len(crops), n_px, n_px, 3), np.uint8)
+            for i, crop in enumerate(crops):
+                out[i] = clip_preprocess(Image.fromarray(np.asarray(crop)), n_px)
         return out
 
     def infer_canvases(self, canvases_u8: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -158,12 +166,15 @@ class ProtoClipClassifier:
                 f"expected 1..{self.max_batch} canvases, got {n}"
             )
         bucket = next(b for b in self.batch_buckets if b >= n)
-        if n != bucket:
-            block = np.zeros((bucket,) + canvases_u8.shape[1:], canvases_u8.dtype)
-            block[:n] = canvases_u8
-            canvases_u8 = block
-        probs, idxs = self._infer(torch.from_numpy(canvases_u8).to(self.device))
-        return probs.cpu().numpy()[:n], idxs.cpu().numpy()[:n]
+        with span("infer.issue", rows=bucket):
+            if n != bucket:
+                block = np.zeros((bucket,) + canvases_u8.shape[1:], canvases_u8.dtype)
+                block[:n] = canvases_u8
+                canvases_u8 = block
+            probs, idxs = self._infer(torch.from_numpy(canvases_u8).to(self.device))
+        with span("infer.readback", rows=n):
+            probs, idxs = probs.cpu().numpy(), idxs.cpu().numpy()
+        return probs[:n], idxs[:n]
 
     def names_for_ids(self, idxs: np.ndarray) -> List[List[str]]:
         """Top-k id rows -> display classnames (splits-file mapping,
@@ -186,9 +197,10 @@ class ProtoClipClassifier:
             return [], np.zeros((0, self.cfg.top_k), np.float32)
         if n > self.max_batch:
             raise ValueError(f"at most {self.max_batch} crops per call (got {n})")
-        batch = self._preprocess_crops(cropped_images)
-        probs, idxs = self.infer_canvases(batch)
-        names = self.names_for_ids(idxs)
+        with span("classify", rows=n):
+            batch = self._preprocess_crops(cropped_images)
+            probs, idxs = self.infer_canvases(batch)
+            names = self.names_for_ids(idxs)
         if log:
             os.makedirs(log_dir, exist_ok=True)
             np.save(

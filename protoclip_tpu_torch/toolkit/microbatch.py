@@ -1,6 +1,6 @@
 """Dynamic request micro-batching for the serving path (counterpart of
-``protoclip_tpu/toolkit/microbatch.py``, numpy only, copied with its
-behaviour: FIFO all-or-nothing admission, the fill window, failure
+``protoclip_tpu/toolkit/microbatch.py``, numpy only but for its spans,
+copied with its behaviour: FIFO all-or-nothing admission, the fill window, failure
 accounting and the release of a failed request's rows, the health probe
 and the statistics).
 
@@ -17,6 +17,12 @@ dispatcher); callers (HTTP handler threads) block in :meth:`submit` until
 their slice of the results is ready.  The device function sets the device
 its work runs on, so the dispatcher thread needs no CUDA state of its own.
 Requests larger than the batch are split across consecutive dispatches.
+
+Spans (``obs.profiler``, labelled with the batcher's ``label``):
+``batch.dispatch`` (rows: the fill) around each call of the device
+function, and ``batch.queue_wait`` (rows: the request's) from a request's
+enqueue to the dispatch that takes its first rows, which that dispatch's
+thread records under the caller's request id.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from protoclip_tpu_torch.obs import profiler
+
 
 class _Request:
-    __slots__ = ("images", "parts", "done", "error", "event")
+    __slots__ = ("images", "parts", "done", "error", "event", "request", "enqueued")
 
     def __init__(self, images: np.ndarray):
         self.images = images
@@ -39,6 +47,8 @@ class _Request:
         self.done = 0
         self.error: Optional[BaseException] = None
         self.event = threading.Event()
+        self.request = profiler.current_request()
+        self.enqueued = 0  # perf_counter_ns at the enqueue
 
 
 class MicroBatcher:
@@ -68,6 +78,8 @@ class MicroBatcher:
         (``io/export.py`` ``batch_sizes``), which pads to its smallest
         bucket so small dispatches cost less compute.  Leave False for
         callables that take one fixed shape.
+    label:
+        the label of the batcher's spans (the server's route).
     """
 
     def __init__(
@@ -79,6 +91,7 @@ class MicroBatcher:
         max_wait_s: float = 0.005,
         max_pending: Optional[int] = None,
         trim_underfull: bool = False,
+        label: str = "",
     ):
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
@@ -88,6 +101,7 @@ class MicroBatcher:
         self.dtype = np.dtype(dtype)
         self.max_wait_s = float(max_wait_s)
         self.trim_underfull = bool(trim_underfull)
+        self.label = label
         self.max_pending = int(max_pending or max(8 * batch_size, 1024))
         self._q: queue.Queue = queue.Queue()
         # backpressure counter. A Condition (not a Semaphore) because a
@@ -171,6 +185,7 @@ class MicroBatcher:
                 # backpressure can also drain through the closed check
                 rejected = True
             else:
+                req.enqueued = time.perf_counter_ns()
                 self._q.put(req)
         if rejected:
             self._release_capacity(n)
@@ -304,6 +319,7 @@ class MicroBatcher:
     def _dispatch_one(self, pending: collections.deque) -> None:
         block = np.zeros((self.batch_size,) + self.item_shape, self.dtype)
         parts = []  # (request, block_offset, n)
+        first = []  # requests whose first rows this dispatch takes
         fill = 0
         while pending and fill < self.batch_size:
             entry = pending[0]
@@ -311,16 +327,17 @@ class MicroBatcher:
             n = min(len(req.images) - consumed, self.batch_size - fill)
             block[fill : fill + n] = req.images[consumed : consumed + n]
             parts.append((req, fill, n))
+            if consumed == 0:
+                first.append(req)
             entry[1] += n
             fill += n
             if entry[1] == len(req.images):
                 pending.popleft()
-        t_start = time.monotonic()
         dropped_rows = 0
         if self.trim_underfull and fill < self.batch_size:
             block = block[:fill]
         try:
-            out = self._run_batch(block)
+            out, dispatch_ns = self._run_spanned(block, fill, first)
         except BaseException as exc:  # noqa: BLE001 — fail the requests, not the loop
             failed = set()
             for req, _, _ in parts:
@@ -348,7 +365,22 @@ class MicroBatcher:
             with self._stats_lock:
                 self._dispatches += 1
                 self._images += fill
-                self._recent_s.append(time.monotonic() - t_start)
+                self._recent_s.append(dispatch_ns / 1e9)
                 self._consecutive_failures = 0
         finally:
             self._release_capacity(fill + dropped_rows)
+
+    def _run_spanned(self, block: np.ndarray, fill: int, first: list) -> tuple:
+        """``(run_batch(block), its ns)``.  The batch is a request of its
+        own, so the device function's spans take its id and the route's
+        label; ``first``'s queue waits end where the dispatch starts."""
+        with profiler.request(self.label):
+            dispatch = profiler.span("batch.dispatch", rows=fill)
+            try:
+                with dispatch:
+                    out = self._run_batch(block)
+                return out, dispatch.ns
+            finally:
+                for req in first:
+                    profiler.add("batch.queue_wait", req.enqueued, dispatch.t0,
+                                 rows=len(req.images), request=req.request, parent=dispatch.id)

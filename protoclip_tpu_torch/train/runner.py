@@ -56,11 +56,13 @@ from protoclip_tpu_torch.models import (
     load_clip,
 )
 from protoclip_tpu_torch.obs.logging import MetricLogger
+from protoclip_tpu_torch.obs.profiler import span
 from protoclip_tpu_torch.parallel import (
     make_sharded_encode,
     mesh_batch,
     process_device,
     replicated,
+    shard_batch,
 )
 from protoclip_tpu_torch.train.episodic import EpisodicTrainer
 
@@ -78,7 +80,9 @@ def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None,
     mesh (their size a multiple of it) with the features gathered back onto
     the first device; the text encode stays on the first device, as JAX's
     stays unsharded.  ``int8`` picks the towers' block mode (True: the W8A8
-    serving block, K3; None reads ``$PROTOCLIP_INT8``).
+    serving block, K3; None reads ``$PROTOCLIP_INT8``).  The copy of an
+    image batch to the device is the ``encode.upload`` span (bytes: the
+    uint8 batch).
     """
     dev = process_device(device, mesh)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -92,10 +96,17 @@ def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None,
         weights = clip_params
 
         def run(params, images_u8: np.ndarray) -> torch.Tensor:
-            return image(params, torch.from_numpy(images_u8).to(dev))
+            with span("encode.upload", nbytes=images_u8.nbytes):
+                images = torch.from_numpy(images_u8).to(dev)
+            return image(params, images)
     else:
         weights = replicated(mesh).put(clip_params)
-        run = make_sharded_encode(image, mesh)
+        sharded = make_sharded_encode(image, mesh)
+
+        def run(params, images_u8: np.ndarray) -> torch.Tensor:
+            with span("encode.upload", nbytes=images_u8.nbytes):
+                batch = shard_batch(images_u8, mesh)
+            return sharded(params, batch)
 
     @torch.inference_mode()
     def encode_images(images_u8: np.ndarray) -> torch.Tensor:

@@ -517,6 +517,51 @@ def _families(text):
     return sorted(line.split()[2] for line in text.splitlines() if line.startswith("# TYPE"))
 
 
+SPAN_FAMILIES = ["protoclip_span_seconds_total", "protoclip_spans_total"]
+SERVER_SPANS = ("serve.parse", "serve.decode", "batch.queue_wait", "batch.dispatch",
+                "serve.respond")
+
+
+def test_statz_and_metrics_expose_the_route_spans(server):
+    """/statz's "spans" of /encode count one parse, decode, queue wait and
+    reply a request and one dispatch a dispatch; /metrics' span families
+    agree with it; every key /statz had is still there."""
+    srv, _ = server
+    port = srv.server_address[1]
+    batcher = srv.RequestHandlerClass.routes["/encode"].batcher
+    before = json.loads(_get(port, "/statz")[1])["/encode"]
+    requests = 3
+    for i in range(requests):
+        arr = np.random.default_rng(40 + i).integers(0, 256, (30 + i, 40, 3)).astype(np.uint8)
+        assert _post(port, "/encode", {"images": [_b64_jpeg(arr)] * (i + 1)})[0] == 200
+
+    def grew(name, key="count"):
+        return spans.get(name, {}).get(key, 0) - before["spans"].get(name, {}).get(key, 0)
+
+    deadline = time.monotonic() + 30
+    while True:  # a reply's span closes after the client has read it
+        after = json.loads(_get(port, "/statz")[1])["/encode"]
+        spans = after["spans"]
+        if grew("serve.respond") == requests or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    text = _get(port, "/metrics")[1].decode()
+    assert set(after) == set(batcher.stats) | {"spans"}
+    assert set(SERVER_SPANS) <= set(spans)
+
+    for name in ("serve.parse", "serve.decode", "batch.queue_wait", "serve.respond"):
+        assert grew(name) == requests, name
+    assert grew("batch.dispatch") == after["dispatches"] - before["dispatches"] > 0
+    assert grew("serve.decode", "rows") == grew("batch.queue_wait", "rows") == 6
+    assert grew("batch.dispatch", "rows") == after["images"] - before["images"] == 6
+    assert grew("serve.parse", "bytes") > 0 and grew("serve.respond", "bytes") > 0
+    for name, total in spans.items():
+        assert prometheus_value(text, "protoclip_spans_total", route="/encode",
+                                span=name) == total["count"]
+        assert prometheus_value(text, "protoclip_span_seconds_total", route="/encode",
+                                span=name) == pytest.approx(total["total_ms"] / 1e3)
+
+
 def test_metrics_prometheus_exposition_as_the_jax_server(server):
     srv, bundle = server
     port = srv.server_address[1]
@@ -549,7 +594,8 @@ def test_metrics_prometheus_exposition_as_the_jax_server(server):
         jtext = _get(jport, "/metrics")[1].decode()
     finally:
         _stop(jsrv, thread)
-    assert _families(text) == _families(jtext)
+    # the JAX server's families, and the port's span totals
+    assert _families(text) == sorted(_families(jtext) + SPAN_FAMILIES)
     assert ({re.sub(r" \S+$", "", line) for line in text.splitlines() if "/encode" in line}
             >= {re.sub(r" \S+$", "", line) for line in jtext.splitlines()
                 if "/encode" in line and "responses" not in line})
