@@ -3086,8 +3086,8 @@ def recording_runs(torch, runs):
     seconds of the image encode calls (CUDA events on the stream around each
     call, summed: the tower's share; decode, collation and the host-to-card
     copy lie outside them), in the bank build and in the whole run, and the
-    run's wall seconds, appended to ``runs``.  An encode call's rows include
-    the zero rows that pad the loader's last batch."""
+    run's wall seconds, appended to ``runs``.  An encode call's rows are
+    the batch's valid rows (``encode_loader`` hands over no padding)."""
     from protoclip_tpu_torch.ops import kernels as K
     from protoclip_tpu_torch.train import runner
 
@@ -3120,7 +3120,7 @@ def recording_runs(torch, runs):
         now["bank_s"] += time.perf_counter() - t0
         now["bank_card_s"] += card_s(now["image_events"][calls:])
         now["bank_rows"] += now["image_rows"] - rows
-        if now["image_rows"] > rows:  # the loader pads its last batch: count images
+        if now["image_rows"] > rows:  # built, not read from the cache
             now["bank_images"] += loader.num_items * augment_epochs
         return out
 

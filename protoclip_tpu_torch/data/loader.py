@@ -3,8 +3,10 @@
 ``BatchLoader`` decodes and transforms dataset items in a thread pool (PIL
 releases the GIL while it decodes and resizes) and yields fixed-shape uint8
 batches; ``ArrayLoader`` batches arrays already in memory.  Both yield
-``(images_u8 (B, H, W, 3), labels (B,), n_valid)``, the ragged last batch
-zero-padded to ``batch_size`` (``ArrayLoader``: when ``pad_last``).
+``(images_u8 (B, H, W, 3), labels (B,), n_valid)``.  ``BatchLoader`` fills
+a zeroed ``batch_size`` buffer, so its ragged last batch carries zero rows
+past ``n_valid``; ``ArrayLoader`` yields its ragged last batch at its own
+size unless ``pad_last``.
 """
 
 from __future__ import annotations
@@ -103,13 +105,18 @@ class BatchLoader:
 
 class ArrayLoader:
     """Iterate ``(images_u8 (B, H, W, 3), labels (B,), n_valid)`` batches
-    over arrays in memory, in order; the ragged last batch is zero-padded
-    to ``batch_size`` when ``pad_last``."""
+    over arrays in memory, in order, each a view of the arrays.
+
+    The ragged last batch is the view of its ``n_valid`` rows.  ``pad_last``
+    zero-pads it to ``batch_size`` in a fresh copy (span ``loader.pad``), as
+    the JAX package does by default: XLA compiles one program per shape, so
+    it pads to keep one.  The port compiles nothing per shape and the bank
+    build keeps only the valid rows, so it pads only when asked."""
 
     shuffle = False
 
     def __init__(self, images: np.ndarray, labels: np.ndarray, batch_size: int = 256,
-                 pad_last: bool = True):
+                 pad_last: bool = False):
         if len(images) != len(labels):
             raise ValueError(f"{len(images)} images but {len(labels)} labels")
         self.images = images

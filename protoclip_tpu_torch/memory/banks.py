@@ -50,6 +50,10 @@ def encode_loader(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Encode every item in a loader -> (features fp32 (M, d), labels (M,)).
 
+    ``encode_fn`` gets each batch's ``n_valid`` rows alone (a view): the
+    zero rows that pad a loader's ragged last batch are never uploaded or
+    encoded.
+
     Spans: ``encode_loader`` (rows: valid rows) around the whole, and
     ``encode_loader.readback`` (rows: the batch's valid rows) around each
     batch's copy to the host, where the host waits for the card."""
@@ -65,7 +69,7 @@ def encode_loader(
             pass
     with span("encode_loader") as whole:
         for images, batch_labels, n_valid in iterator:
-            out = encode_fn(images)
+            out = encode_fn(images[:n_valid])
             with span("encode_loader.readback", rows=n_valid):
                 batch = _to_numpy(out)[:n_valid]
             if normalize:

@@ -85,7 +85,8 @@ def _on_device(device):
 
 def mesh_batch(batch_size: int, mesh: Optional[Mesh]) -> int:
     """``batch_size`` rounded up to a multiple of the mesh's devices (a
-    sharded batch must divide evenly; the loaders pad ragged batches)."""
+    sharded batch must divide evenly; a ragged last batch is padded by the
+    encode, ``train.runner.make_encode_fns``)."""
     return batch_size if mesh is None else -(-batch_size // mesh.size) * mesh.size
 
 

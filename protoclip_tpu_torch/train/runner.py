@@ -77,12 +77,14 @@ def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None,
     takes token ids.  Both run under ``torch.inference_mode``.  With a
     ``mesh`` (``parallel.make_mesh``) the weights are loaded onto its first
     device and copied once to the others, and image batches shard over the
-    mesh (their size a multiple of it) with the features gathered back onto
-    the first device; the text encode stays on the first device, as JAX's
+    mesh with the features gathered back onto the first device: a batch
+    whose rows do not divide over the mesh is zero-padded to the next
+    multiple of ``mesh.size`` first, and its features come back at the
+    batch's own rows.  The text encode stays on the first device, as JAX's
     stays unsharded.  ``int8`` picks the towers' block mode (True: the W8A8
     serving block, K3; None reads ``$PROTOCLIP_INT8``).  The copy of an
-    image batch to the device is the ``encode.upload`` span (bytes: the
-    uint8 batch).
+    image batch to the device is the ``encode.upload`` span (rows and
+    bytes: the uint8 rows uploaded, padding included).
     """
     dev = process_device(device, mesh)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -96,7 +98,7 @@ def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None,
         weights = clip_params
 
         def run(params, images_u8: np.ndarray) -> torch.Tensor:
-            with span("encode.upload", nbytes=images_u8.nbytes):
+            with span("encode.upload", rows=len(images_u8), nbytes=images_u8.nbytes):
                 images = torch.from_numpy(images_u8).to(dev)
             return image(params, images)
     else:
@@ -104,9 +106,14 @@ def make_encode_fns(cfg: Config, device: DeviceLike = None, mesh=None,
         sharded = make_sharded_encode(image, mesh)
 
         def run(params, images_u8: np.ndarray) -> torch.Tensor:
-            with span("encode.upload", nbytes=images_u8.nbytes):
+            rows = len(images_u8)
+            short = -rows % mesh.size
+            if short:
+                images_u8 = np.concatenate(
+                    [images_u8, np.zeros((short, *images_u8.shape[1:]), images_u8.dtype)])
+            with span("encode.upload", rows=len(images_u8), nbytes=images_u8.nbytes):
                 batch = shard_batch(images_u8, mesh)
-            return sharded(params, batch)
+            return sharded(params, batch)[:rows]
 
     @torch.inference_mode()
     def encode_images(images_u8: np.ndarray) -> torch.Tensor:

@@ -957,3 +957,25 @@ def test_cuda_validate_bundle_vit_b16(cuda_device, monkeypatch, int8):
     assert sorted(result["per_replay"]) == [8, 16]
     for launches in result["per_replay"].values():
         assert launches[block] == 12 and other not in launches
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_bank_batch_matches_the_padded_call(cuda_device, monkeypatch):
+    """The bank build's short batch through the runner's encode (ViT-B/16,
+    random weights, K2 in bf16): its 96 valid rows encoded alone equal the
+    first 96 rows of the 1024-row call padded with zero rows, bit for bit."""
+    from protoclip_tpu_torch.core.config import Config
+    from protoclip_tpu_torch.models import clip
+    from protoclip_tpu_torch.train.runner import make_encode_fns
+
+    monkeypatch.setattr(clip, "find_weights", lambda backbone: None)
+    monkeypatch.delenv("PROTOCLIP_STRICT_WEIGHTS", raising=False)
+    encode = make_encode_fns(Config(backbone="ViT-B/16"), device=cuda_device, int8=False)[0]
+    images = np.random.default_rng(3).integers(0, 256, (96, 224, 224, 3), dtype=np.uint8)
+    padded = np.concatenate([images, np.zeros((928, 224, 224, 3), np.uint8)])
+    kernels.reset_launch_counts()
+    got, want = encode(images), encode(padded)[:96]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fused_transformer_block"] == 24
+    diff = float((got.float() - want.float()).abs().max())
+    assert torch.equal(got, want), f"max |diff| {diff} over max |row| {float(want.abs().max())}"

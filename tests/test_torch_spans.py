@@ -16,7 +16,9 @@ from protoclip_tpu_torch.memory.banks import encode_loader
 from protoclip_tpu_torch.obs import profiler
 from protoclip_tpu_torch.obs.profiler import span, trace_to
 from protoclip_tpu_torch.toolkit.classifier import ProtoClipClassifier
+from protoclip_tpu_torch.train.runner import make_encode_fns
 from tests.test_toolkit import classifier_env  # noqa: F401  (pytest fixture)
+from tests.test_torch_ragged import tiny_cfg  # noqa: F401  (pytest fixture)
 from tests.test_torch_toolkit import _configs, _crops, _triple
 
 
@@ -127,20 +129,25 @@ def test_trace_to_writes_the_spans(tmp_path):
     assert spans["elsewhere"]["tid"] != spans["here"]["tid"]
 
 
-def test_bank_build_spans():
-    images = np.zeros((3168, 2, 2, 3), np.uint8)
+def test_bank_build_spans(tiny_cfg):
+    """The bank build through the runner's encode: the ragged last batch is
+    uploaded and read back at its 96 valid rows, and nothing pads it."""
+    images = np.zeros((3168, 32, 32, 3), np.uint8)
     labels = np.arange(3168, dtype=np.int32) % 11
+    encode = make_encode_fns(tiny_cfg, device="cpu")[0]
     with _profile():
-        feats, got = encode_loader(lambda x: torch.ones(len(x), 4),
-                                   ArrayLoader(images, labels, batch_size=1024))
-    assert feats.shape == (3168, 4) and np.array_equal(got, labels)
+        feats, got = encode_loader(encode, ArrayLoader(images, labels, batch_size=1024))
+    assert feats.shape == (3168, 32) and np.array_equal(got, labels)
     records = _by_name()
-    (root,), (pad,) = records["encode_loader"], records["loader.pad"]
-    readbacks = records["encode_loader.readback"]
-    assert pad.rows == 928 and pad.nbytes == 1024 * 12
-    assert [r.rows for r in readbacks] == [1024, 1024, 1024, 96]
+    assert "loader.pad" not in records
+    (root,) = records["encode_loader"]
+    readbacks, uploads = records["encode_loader.readback"], records["encode.upload"]
+    assert [r.rows for r in readbacks] == [u.rows for u in uploads] == [1024, 1024, 1024, 96]
+    assert [u.nbytes for u in uploads] == [u.rows * 32 * 32 * 3 for u in uploads]
     assert root.rows == 3168 and root.parent == 0
-    assert all(r.parent == root.id and r.request == root.id for r in readbacks + [pad])
+    totals = profiler.totals()
+    assert totals[("encode.upload", "")][2] == totals[("encode_loader", "")][2] == 3168
+    assert all(r.parent == root.id and r.request == root.id for r in readbacks + uploads)
 
 
 def test_classifier_spans(classifier_env):
