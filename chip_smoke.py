@@ -175,7 +175,19 @@ Phases, one JSON line each on stdout:
              modes, kernels and sites timed alone and held to its check rule
              at the bench geometry (variant_times), the int8 attention core
              also at ViT-L/14's (B=128, LP=264).
-17. kernels - the contract line: every ported kernel with the path or phase
+17. eva    - EVA02-CLIP-L/14-336 (the port's own backbone) at its published
+             widths with random weights drawn by name through
+             ``models.load_clip``: 16 images of 336 px (L = 577) and 16
+             prompts encoded in bf16 with the launch counts (24 EVA02
+             blocks: the hidden's sub-LN, the RoPE QKV and the SwiGLU
+             epilogue each a block; the exact-GELU text MLP), the text
+             features held to the CPU's fp32 plain path, layer 0's image
+             block and text block held to their plain versions on the
+             card, each EVA02 kernel and mode held to its plain version
+             (``eva_agreement``) with a planted fault that the same rule
+             must refuse, and each timed as in ``times`` (the image block
+             at B = 16, the text fc at B = 256 prompts).
+18. kernels - the contract line: every ported kernel with the path or phase
              that launched it, its launches (by path, the runner's, the
              trainers', the server's and the tools' too, and per replay of
              each serving bucket's CUDA graph), error, times and bound.
@@ -4289,6 +4301,16 @@ KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that laun
     "fused_transformer_block_int8": ("protoclip_tpu_torch/ops/kernels.py", f"{PALLAS}:516",
                                      "main_int8"),
     "fused_attention": ("protoclip_tpu_torch/csrc/attention_packed.cu", f"{PALLAS}:65", "check"),
+    # EVA02-CLIP's kernel and modes replace no TPU kernel (the JAX package has
+    # no EVA02 block): each names the step of the TPU block it varies
+    "layernorm_sub_rows": ("protoclip_tpu_torch/csrc/layernorm_rows.cu", f"{PALLAS}:263", "eva"),
+    "gemm_bias_epilogue.bias_rope": ("protoclip_tpu_torch/csrc/gemm_bias_epilogue.cu",
+                                     f"{PALLAS}:275", "eva"),
+    "gemm_bias_epilogue.bias_swiglu": ("protoclip_tpu_torch/csrc/gemm_bias_epilogue.cu",
+                                       f"{PALLAS}:321", "eva"),
+    "gemm_bias_epilogue.bias_gelu_erf": ("protoclip_tpu_torch/csrc/gemm_bias_epilogue.cu",
+                                         f"{PALLAS}:321", "eva"),
+    "fused_eva_block": ("protoclip_tpu_torch/ops/kernels.py", f"{PALLAS}:252", "eva"),
 }
 BENCH = "scripts/bench_block_variants.py"
 CSRC = "protoclip_tpu_torch/csrc/"
@@ -4323,6 +4345,218 @@ KERNEL_SOURCES.update({  # the block-variant bench (S1): its modes, its kernels,
 })
 
 
+EVA_BACKBONE = "EVA02-CLIP-L-14-336"
+EVA_BATCH, EVA_TEXT_BATCH = 16, 256
+EVA_TEXT_CHECKED = 4  # prompts whose card features are held to the CPU's fp32 ones
+# An EVA02 kernel or mode against its plain version: within the bf16 bars,
+# and bit for bit equal in at least this share of its outputs.  A
+# LayerNorm's fp32 statistics, rsqrtf, and an epilogue's exp or erf round
+# in another order than the plain version, so an output on a rounding tie
+# moves a bf16 step now and then (at most 1 in 38,000 on an H100); on
+# inputs where the products sum exactly, a wrong mode moves a large share
+# (tanh-GELU 5.7%, LayerNorm statistics over 2736 lanes 23%).
+EVA_EQUAL_SHARE = 0.999
+
+
+def eva_agreement(out, ref):
+    """:data:`EVA_EQUAL_SHARE`'s rule: the bf16 bars, and the share of
+    outputs bit for bit equal."""
+    got = bars_agreement(out, ref, BARS["bfloat16"])
+    share = float((out == ref).float().mean())
+    return {**got, "equal_share": share, "ok": got["ok"] and share >= EVA_EQUAL_SHARE}
+
+
+def exact_sum_values(torch, g, shape, steps, step):
+    """bf16 values ``k * step``, k uniform in [-steps, steps], drawn by
+    ``g`` on its device.
+    With ``step`` a power of two, a product of two such values needs few
+    bits and a sum of a few thousand of them is exact in fp32 in any
+    order, so a GEMM on them reaches its epilogue with the plain version's
+    accumulator bit for bit."""
+    k = torch.randint(-steps, steps + 1, shape, device=g.device, generator=g)
+    return (k * step).to(torch.bfloat16)
+
+
+def phase_eva(torch, np):
+    """EVA02-CLIP-L/14-336 on the card (phase 17).  Returns the encode's
+    launch counts and the timings of its kernels and modes."""
+    import torch.nn.functional as F
+
+    from protoclip_tpu_torch.data.transforms import normalize_batch
+    from protoclip_tpu_torch.models import clip
+    from protoclip_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    cfg, params = clip.load_clip(EVA_BACKBONE, device="cuda", int8=False)
+    load_s = time.perf_counter() - t0
+    vis, layers = params["visual"], cfg.vision_layers
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    px = cfg.image_resolution
+    images = torch.randint(0, 256, (EVA_BATCH, px, px, 3), device="cuda", generator=g,
+                           dtype=torch.uint8)
+    tokens = torch.from_numpy(synthetic_tokenize([f"a photo of object {i}" for i in
+                                                  range(EVA_BATCH)])).cuda()
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        feats = clip.encode_image(params, normalize_batch(images, torch.bfloat16), cfg)
+        text = clip.encode_text(params, tokens, cfg)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    require(bool(torch.isfinite(feats).all() and torch.isfinite(text).all()),
+            "EVA02 features are not finite")
+    want = {"fused_eva_block": layers, "layernorm_sub_rows": layers,
+            "gemm_bias_epilogue.bias_rope": layers, "gemm_bias_epilogue.bias_swiglu": layers,
+            "gemm_bias_epilogue.bias_gelu_erf": cfg.transformer_layers,
+            "attention_packed": layers + cfg.transformer_layers}
+    require(all(counts[k] == n for k, n in want.items()),
+            f"EVA02 encode launches {counts}, expected {want}")
+    # the text tower against its plain version (the exact-GELU K2 chain) in
+    # fp32 on the CPU, at phase_main's bar
+    with torch.inference_mode():
+        cpu_text = clip.cast_params(clip.to_device(params["text"], "cpu"), torch.float32)
+        plain_text = clip.encode_text({"text": cpu_text}, tokens[:EVA_TEXT_CHECKED].cpu(), cfg)
+    del cpu_text
+    text_cos = row_cosines(torch, text[:EVA_TEXT_CHECKED].float().cpu(), plain_text)
+    require(float(text_cos.min()) >= 0.999,
+            f"EVA02 text features against the CPU's fp32: cosines {text_cos.tolist()}")
+
+    bf16, d, h = torch.bfloat16, cfg.vision_width, cfg.vision_heads
+    l = (px // cfg.vision_patch_size) ** 2 + 1
+    m = EVA_BATCH * l
+    blk, cos, sin = vis["blocks"][0], vis["rope"]["cos"], vis["rope"]["sin"]
+    p = K._eva_block_args(blk, bf16)
+    hid_w = blk["mlp"]["ln_ffn"]["scale"].shape[0]
+    hp = blk["mlp"]["w12"].shape[1] // 2
+    x = torch.randn(EVA_BATCH, l, d, device="cuda", generator=g).to(bf16)
+    block_check = bars_agreement(K.fused_eva_block(x, blk, h, cos, sin),
+                                 K.fused_eva_block_plain(x, blk, h, cos, sin), BARS["bfloat16"])
+    require(block_check["ok"], f"EVA02 block against its plain version: {block_check}")
+    ln1 = K.layernorm_rows_plain(x, *p["ln1"], K.EVA_LN_EPS)
+    hid = K.gemm_bias_swiglu_plain(ln1, p["w12"], p["b12"])
+    tw, tl = cfg.transformer_width, cfg.context_length
+    pt = K._block_args(params["text"]["blocks"][0], bf16)
+    a = torch.randn(EVA_TEXT_BATCH, tl, tw, device="cuda", generator=g).to(bf16)
+    mt = EVA_TEXT_BATCH * tl
+    text_block = params["text"]["blocks"][0]
+    text_check = bars_agreement(
+        K.fused_transformer_block(a, text_block, cfg.transformer_heads, True, act="gelu"),
+        K.fused_transformer_block_plain(a, text_block, cfg.transformer_heads, True, act="gelu"),
+        BARS["bfloat16"])
+    require(text_check["ok"], f"EVA02 text block against its plain version: {text_check}")
+
+    # each kernel and mode alone, and a fault planted in its plain version
+    # that the same rule has to refuse
+    checks = {}
+
+    def hold(name, kernel, plain, fault):
+        out = kernel()
+        torch.cuda.synchronize()
+        got, planted = eva_agreement(out, plain), eva_agreement(fault, plain)
+        require(got["ok"], f"{name} against its plain version: {got}")
+        require(not planted["ok"], f"{name}: the rule passes its planted fault: {planted}")
+        checks[name] = {**got, "fault": {k: planted[k] for k in ("rel", "cos", "equal_share")}}
+
+    def turn_pairs(t):  # w1 and w2 trade places in the interleaved (..., 2H)
+        return t.unflatten(-1, (hp, 2)).flip(-1).flatten(-2)
+
+    ea = exact_sum_values(torch, g, (EVA_BATCH, l, d), 8, 1 / 16)
+    ew = exact_sum_values(torch, g, (d, 3 * d), 2, 1 / 16)
+    eb = exact_sum_values(torch, g, (3 * d,), 64, 1 / 256)
+    rope = K.gemm_bias_rope_plain(ea, ew, eb, cos, sin, 2 * d)
+    cls_turned = rope.clone()  # the class token turned by the last patch's angles
+    cls_turned[:, 0] = K.gemm_bias_rope_plain(ea[:, [0, 0]], ew, eb, cos[-1:], sin[-1:],
+                                              2 * d)[:, 1]
+    hold("gemm_bias_epilogue.bias_rope", lambda: K.gemm_bias_rope(ea, ew, eb, cos, sin, 2 * d),
+         rope, cls_turned)
+    del rope, cls_turned
+    ew = exact_sum_values(torch, g, (d, 2 * hp), 2, 1 / 16)
+    eb = exact_sum_values(torch, g, (2 * hp,), 64, 1 / 256)
+    ew[:, 2 * hid_w:], eb[2 * hid_w:] = 0, 0  # the padded hidden, as models/eva.py pads it
+    hold("gemm_bias_epilogue.bias_swiglu", lambda: K.gemm_bias_swiglu(ea, ew, eb),
+         K.gemm_bias_swiglu_plain(ea, ew, eb),
+         K.gemm_bias_swiglu_plain(ea, turn_pairs(ew), turn_pairs(eb)))
+    del ea, ew, eb
+    sc = 1 + 0.1 * torch.randn(hid_w, device="cuda", generator=g)
+    sh = 0.1 * torch.randn(hid_w, device="cuda", generator=g)
+    over_stride = K.layernorm_rows_plain(hid, F.pad(sc, (0, hp - hid_w)),
+                                         F.pad(sh, (0, hp - hid_w)), K.EVA_LN_EPS)
+    over_stride[..., hid_w:] = 0
+    hold("layernorm_sub_rows", lambda: K.layernorm_sub_rows(hid, sc, sh),
+         K.layernorm_sub_rows_plain(hid, sc, sh), over_stride)
+    del over_stride
+    # LN_inner on layernorm_rows at EVA02's eps, on values of an attention
+    # output's size (v averaged over 577 tokens), where eps = 1e-5 shows
+    o = (0.01 * torch.randn(EVA_BATCH, l, d, device="cuda", generator=g)).to(bf16)
+    sc = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
+    sh = 0.1 * torch.randn(d, device="cuda", generator=g)
+    hold("layernorm_rows.ln_inner", lambda: K.layernorm_rows(o, sc, sh, K.EVA_LN_EPS),
+         K.layernorm_rows_plain(o, sc, sh, K.EVA_LN_EPS), K.layernorm_rows_plain(o, sc, sh))
+    del o
+    ea = exact_sum_values(torch, g, (EVA_TEXT_BATCH, tl, tw), 8, 1 / 16)
+    ew = exact_sum_values(torch, g, (tw, 4 * tw), 2, 1 / 16)
+    eb = exact_sum_values(torch, g, (4 * tw,), 64, 1 / 256)
+    acc = torch.matmul(ea.float(), ew.float()) + eb.float()
+    hold("gemm_bias_epilogue.bias_gelu_erf",
+         lambda: K.gemm_bias_epilogue(ea, ew, eb, "bias_gelu_erf"),
+         K.gemm_bias_epilogue_plain(ea, ew, eb, "bias_gelu_erf"),
+         F.gelu(acc, approximate="tanh").to(bf16))
+    del ea, ew, eb, acc
+    r = {}
+
+    def entry(name, kernel, plain, library, n_bytes, ops):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        bnd, by, by_bytes, by_ops = bound_ms(n_bytes, ops)
+        r[name] = {"ms": median_ms(torch, kernel), "device_ms": device_ms(torch, kernel),
+                   "plain_ms": median_ms(torch, plain),
+                   "library_ms": None if library is None else median_ms(torch, library),
+                   "bound_ms": bnd, "bound_by": by, "bytes_ms": by_bytes, "ops_ms": by_ops,
+                   "max_abs_err": _max_abs_err(out, ref)}
+
+    tables = 2 * cos.numel() * 4
+    entry("gemm_bias_epilogue.bias_rope",
+          lambda: K.gemm_bias_rope(ln1, p["wqkv"], p["bqkv"], cos, sin, 2 * d),
+          lambda: K.gemm_bias_rope_plain(ln1, p["wqkv"], p["bqkv"], cos, sin, 2 * d),
+          lambda: torch.addmm(p["bqkv"], ln1.reshape(m, d), p["wqkv"]),
+          (m * d + d * 3 * d + 3 * d + m * 3 * d) * 2 + tables, 2 * m * d * 3 * d)
+    entry("gemm_bias_epilogue.bias_swiglu",
+          lambda: K.gemm_bias_swiglu(ln1, p["w12"], p["b12"]),
+          lambda: K.gemm_bias_swiglu_plain(ln1, p["w12"], p["b12"]),
+          lambda: torch.addmm(p["b12"], ln1.reshape(m, d), p["w12"]),
+          (m * d + d * 2 * hp + 2 * hp + m * hp) * 2, 2 * m * d * 2 * hp)
+    entry("layernorm_sub_rows",
+          lambda: K.layernorm_sub_rows(hid, *p["ln_ffn"]),
+          lambda: K.layernorm_sub_rows_plain(hid, *p["ln_ffn"]),
+          lambda: F.layer_norm(hid[..., :hid_w], (hid_w,), *(t.to(bf16) for t in p["ln_ffn"])),
+          2 * m * hp * 2 + 2 * hid_w * 4, 8 * m * hid_w)
+    entry("layernorm_rows.ln_inner",
+          lambda: K.layernorm_rows(x, *p["ln_inner"], K.EVA_LN_EPS),
+          lambda: K.layernorm_rows_plain(x, *p["ln_inner"], K.EVA_LN_EPS),
+          lambda: F.layer_norm(x, (d,), *(t.to(bf16) for t in p["ln_inner"])),
+          2 * m * d * 2 + 2 * d * 4, 8 * m * d)
+    attn = attention_flops(EVA_BATCH, l, d, False)
+    entry("fused_eva_block",
+          lambda: K.fused_eva_block(x, blk, h, cos, sin),
+          lambda: K.fused_eva_block_plain(x, blk, h, cos, sin), None,
+          (2 * m * d + 4 * d * d + 3 * d * hp + 5 * d + 2 * hp) * 2 + tables
+          + (6 * d + 2 * hid_w) * 4,
+          2 * m * d * (3 * d + d + 2 * hp + hp) + attn)
+    entry("gemm_bias_epilogue.bias_gelu_erf",
+          lambda: K.gemm_bias_epilogue(a, pt["wfc"], pt["bfc"], "bias_gelu_erf"),
+          lambda: K.gemm_bias_epilogue_plain(a, pt["wfc"], pt["bfc"], "bias_gelu_erf"),
+          lambda: F.gelu(torch.addmm(pt["bfc"], a.reshape(mt, tw), pt["wfc"])),
+          (mt * tw + tw * 4 * tw + 4 * tw + mt * 4 * tw) * 2, 2 * mt * tw * 4 * tw)
+    del params, vis, blk, pt, x, ln1, hid, a
+    torch.cuda.empty_cache()
+    result = {"backbone": EVA_BACKBONE, "batch": EVA_BATCH, "L": l, "D": d, "heads": h,
+              "hidden": hid_w, "load_s": load_s, "block_check": block_check,
+              "text_block_check": text_check, "text_cos_vs_cpu_fp32": text_cos.tolist(),
+              "checks": checks, "launches": {k: n for k, n in counts.items() if n},
+              "kernels": r}
+    emit({"phase": "eva", **result})
+    return counts, result
+
+
 def phase_kernels(counts, times, vtimes, serve):
     """One entry per ported kernel, timed at the image block (ViT-B/16,
     B=256), or, for the bench's modes, kernels and sites, at the bench's
@@ -4338,13 +4572,13 @@ def phase_kernels(counts, times, vtimes, serve):
     holds the serving path's launches: per replay of each bundle bucket's
     CUDA graph (counted when it was captured; a replay counts none) and per
     /classify dispatch of the served traffic."""
-    image = times["image"]["kernels"]
     rows = []
     for name, (source, replaces, path) in KERNEL_SOURCES.items():
         if path == "variants":
             parts = [vtimes[name]]
         else:
-            parts = [v for k, v in image.items() if k == name or k.startswith(name + ".")]
+            timed = times["eva" if path == "eva" else "image"]["kernels"]
+            parts = [v for k, v in timed.items() if k == name or k.startswith(name + ".")]
         lib = [pt["library_ms"] for pt in parts]
         by_bytes, by_ops = sum(pt["bytes_ms"] for pt in parts), sum(pt["ops_ms"] for pt in parts)
         rows.append({
@@ -4423,6 +4657,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, counts["variants"] = phase_variants(torch, np)
     vtimes = phase_variant_times(torch, np)
+    counts["eva"], times["eva"] = phase_eva(torch, np)
     phase_kernels(counts, times, vtimes, serve)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

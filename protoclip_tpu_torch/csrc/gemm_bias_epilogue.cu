@@ -19,6 +19,26 @@
 //                         (bf16 on the bench), as JAX evaluates it
 //   EPI_BIAS32_RESIDUAL   int8h's bf16 down-projection (:893-901):
 //                         T(res + T(acc + b)) with an fp32 bias
+// Three more replace no TPU kernel: the EVA02 image block and the exact-GELU
+// text MLP of the EVA02-CLIP backbones (ops/kernels.py::fused_eva_block),
+// which the JAX package does not have:
+//   EPI_BIAS_GELU_ERF     text fc:      T(h * 0.5 * (1 + erf(h / sqrt 2))),
+//                                       h = acc + f32(b) in fp32
+//   EPI_BIAS_ROPE         EVA QKV:      y = T(acc + b); for a token other
+//                         than its sequence's first (row % tokens != 0) and
+//                         a column below rot_cols (q and k), each
+//                         interleaved pair (y0, y1) of a head's channels
+//                         2i, 2i+1 becomes T(y0 c0 - y1 s0), T(y1 c1 + y0 s1)
+//                         in fp32 with the token's fp32 RoPE table
+//   EPI_BIAS_SWIGLU       EVA fc:       W holds w1 and w2 interleaved by
+//                         column (2i: w1's column i, 2i+1: w2's), so a
+//                         thread's accumulator pair is one hidden unit's
+//                         gate g and value v; out (M, N/2) = T(silu(g + b)
+//                         * (v + b')) in fp32
+// The first is an instantiation of the block kernel; the last two run
+// gemm_bf16_eva, the same ring and products with an epilogue that takes
+// the RoPE tables (bf16 only: the EVA02 path runs in bf16 on the card).
+// Each instantiation is its own kernel name in a trace.
 //
 // Bound on the H100: operations.  At ViT-B/16 widths a product does
 // 2*M*K*N flops over (M*K + K*N + M*N) values, hundreds of flops per byte
@@ -85,7 +105,7 @@ using bf16 = __nv_bfloat16;
 using namespace hopper;
 
 enum { EPI_BIAS = 0, EPI_BIAS_RESIDUAL = 1, EPI_BIAS_GELU = 2, EPI_BIAS_GELU_BF16 = 3,
-       EPI_BIAS32_RESIDUAL = 4 };
+       EPI_BIAS32_RESIDUAL = 4, EPI_BIAS_ROPE = 5, EPI_BIAS_SWIGLU = 6, EPI_BIAS_GELU_ERF = 7 };
 // The block's three epilogues share one kernel and pick theirs at run time,
 // as before the bench's were added; the bench's two are instantiations of
 // their own.
@@ -111,6 +131,9 @@ __device__ __forceinline__ float epilogue_value(float acc, int epi, float b) {
     return pck::round_to<T>(__fadd_rn(acc, b));
   } else if constexpr (EPI == EPI_BIAS_GELU_BF16) {
     return pck::quick_gelu_rounded<T>(pck::round_to<T>(__fadd_rn(acc, b)));
+  } else if constexpr (EPI == EPI_BIAS_GELU_ERF) {
+    const float h = acc + b;
+    return h * 0.5f * (1.f + erff(h * 0.70710678118654752f));
   } else {
     if (epi == EPI_BIAS_GELU) {
       const float h = acc + b;
@@ -176,19 +199,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
 constexpr int OUT_LD = BN + 8;
 static_assert(BM * OUT_LD * 2 <= STAGES * STAGE_BYTES, "staging fits the ring");
 
-template <int EPI>
-__global__ void __launch_bounds__(WGMMA_THREADS, 2)
-gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
-                const bias_t<bf16, EPI>* __restrict__ bias, const bf16* __restrict__ resid,
-                bf16* __restrict__ out, int M, int N, int K, int epi, int n_tiles) {
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
-  // the swizzle pattern repeats every 1024 bytes: stage buffers start on it
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const int n0 = (blockIdx.x % n_tiles) * BN;
-  const int m0 = (blockIdx.x / n_tiles) * BM;
-  const int k_tiles = (K + BK - 1) / BK;
-
+// The ring's barriers: full[s] counts the bytes that landed in stage s,
+// empty[s] the consumer threads done with it.
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(smem_u32(&full[s]), 1);
@@ -197,7 +210,14 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
 
+// The products of one 128x128 tile over the ring.  The producer warp issues
+// every load and returns false; each consumer thread returns true with its
+// warpgroup's 64 rows in d (the accumulator layout of wgmma.m64n128k16).
+__device__ __forceinline__ bool ring_products(const CUtensorMap* tm_a, const CUtensorMap* tm_w,
+                                              uint32_t base, uint64_t* full, uint64_t* empty,
+                                              int m0, int n0, int k_tiles, float (&d)[64]) {
   const int wg = threadIdx.x >> 7;
   if (wg == CONSUMERS) {  // the producer warp: one thread issues every load
     if (threadIdx.x == CONSUMERS * 128) {
@@ -206,15 +226,14 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
         const uint32_t stage = base + s * STAGE_BYTES, bar = smem_u32(&full[s]);
         mbar_wait(smem_u32(&empty[s]), ((kt / STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(bar, STAGE_BYTES);
-        tma_load_2d(stage, &tm_a, bar, kt * BK, m0);
-        tma_load_2d(stage + A_BYTES, &tm_w, bar, n0, kt * BK);
-        tma_load_2d(stage + A_BYTES + B_HALF_BYTES, &tm_w, bar, n0 + 64, kt * BK);
+        tma_load_2d(stage, tm_a, bar, kt * BK, m0);
+        tma_load_2d(stage + A_BYTES, tm_w, bar, n0, kt * BK);
+        tma_load_2d(stage + A_BYTES + B_HALF_BYTES, tm_w, bar, n0 + 64, kt * BK);
       }
     }
-    return;
+    return false;
   }
 
-  float d[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) d[i] = 0.f;
   for (int kt = 0; kt < k_tiles; ++kt) {
@@ -234,6 +253,26 @@ gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant_
     if (kt > 0) mbar_arrive(smem_u32(&empty[(kt - 1) % STAGES]));
   }
   wgmma_wait<0>();
+  return true;
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(WGMMA_THREADS, 2)
+gemm_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+                const bias_t<bf16, EPI>* __restrict__ bias, const bf16* __restrict__ resid,
+                bf16* __restrict__ out, int M, int N, int K, int epi, int n_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  // the swizzle pattern repeats every 1024 bytes: stage buffers start on it
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+  const int k_tiles = (K + BK - 1) / BK;
+
+  ring_init(full, empty);
+  float d[64];
+  if (!ring_products(&tm_a, &tm_w, base, full, empty, m0, n0, k_tiles, d)) return;
+  const int wg = threadIdx.x >> 7;
 
   // Epilogue, 1: each value from the accumulator's layout (rows 16w +
   // lane/4 (+8) of the warpgroup, columns 8j + 2(lane%4) (+1)) with its
@@ -304,6 +343,111 @@ int launch_wgmma(const void* a, const void* w, const void* bias, const void* res
   gemm_bf16_wgmma<EPI><<<(unsigned)tiles, WGMMA_THREADS, WGMMA_SMEM, s>>>(
       tm_a, tm_w, static_cast<const bias_t<bf16, EPI>*>(bias), static_cast<const bf16*>(resid),
       static_cast<bf16*>(out), M, N, K, epi, (int)n_tiles);
+  return (int)cudaGetLastError();
+}
+
+// -- bf16, the EVA02 block's epilogues -----------------------------------------
+
+// The RoPE tables of EPI_BIAS_ROPE: row t - 1 of cos and sin (fp32, `dh`
+// values a row) turns token t of every sequence of `tokens` rows; output
+// columns below rot_cols turn with table column c % dh.
+struct RopeArgs {
+  const float* cos;
+  const float* sin;
+  int tokens, rot_cols, dh;
+};
+
+// EPI_BIAS_ROPE (out N columns) or EPI_BIAS_SWIGLU (out N / 2 columns) on
+// the block kernel's ring and products.
+template <int EPI>
+__global__ void __launch_bounds__(WGMMA_THREADS, 2)
+gemm_bf16_eva(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+              const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K,
+              int n_tiles, RopeArgs rope) {
+  static_assert(EPI == EPI_BIAS_ROPE || EPI == EPI_BIAS_SWIGLU, "an EVA02 epilogue");
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+
+  ring_init(full, empty);
+  float d[64];
+  if (!ring_products(&tm_a, &tm_w, base, full, empty, m0, n0, (K + BK - 1) / BK, d)) return;
+  const int wg = threadIdx.x >> 7;
+
+  // 1: as the block kernel's, into the staging tile; SwiGLU's pair gives
+  // one value, in column c / 2 of the tile's 64
+  consumers_sync<CONSUMERS * 128>();
+  bf16* stage_out = reinterpret_cast<bf16*>(smem_raw + (base - smem_u32(smem_raw)));
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int srow = wg * 64 + warp * 16 + (lane >> 2);
+  // the tokens of the thread's two rows, once (a 64-bit remainder is dear)
+  int token[2] = {0, 0};
+  if constexpr (EPI == EPI_BIAS_ROPE) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) token[h] = (int)(((long)m0 + srow + 8 * h) % rope.tokens);
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    if (n0 + c < N) {  // N is even: the pair's second column is in too
+      const float2 bb =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n0 + c));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a0 = d[4 * j + 2 * h], a1 = d[4 * j + 2 * h + 1];
+        const int r = srow + 8 * h;
+        if constexpr (EPI == EPI_BIAS_SWIGLU) {
+          const float g = a0 + bb.x, v = a1 + bb.y;
+          stage_out[r * OUT_LD + (c >> 1)] = __float2bfloat16_rn(g / (1.f + expf(-g)) * v);
+        } else {
+          float y0 = pck::round_to<bf16>(a0 + bb.x), y1 = pck::round_to<bf16>(a1 + bb.y);
+          const int t = token[h], col = n0 + c;
+          if (t > 0 && col < rope.rot_cols) {
+            const long at = (long)(t - 1) * rope.dh + col % rope.dh;
+            const float2 cs = *reinterpret_cast<const float2*>(rope.cos + at);
+            const float2 sn = *reinterpret_cast<const float2*>(rope.sin + at);
+            const float t0 = __fadd_rn(__fmul_rn(y0, cs.x), -__fmul_rn(y1, sn.x));
+            y1 = __fadd_rn(__fmul_rn(y1, cs.y), __fmul_rn(y0, sn.y));
+            y0 = t0;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(stage_out + r * OUT_LD + c) =
+              __floats2bfloat162_rn(y0, y1);
+        }
+      }
+    }
+  }
+  consumers_sync<CONSUMERS * 128>();
+  // 2: 16-byte pieces of the tile's output columns, masked at M and N
+  constexpr int COLS = EPI == EPI_BIAS_SWIGLU ? BN / 2 : BN, PIECES = COLS / 8;
+  const int out_n = EPI == EPI_BIAS_SWIGLU ? N / 2 : N;
+  const int o0 = EPI == EPI_BIAS_SWIGLU ? n0 / 2 : n0;
+  for (int idx = threadIdx.x; idx < BM * PIECES; idx += CONSUMERS * 128) {
+    const int r = idx / PIECES, c = (idx % PIECES) * 8;
+    const long gr = (long)m0 + r;
+    if (gr < M && o0 + c < out_n)
+      *reinterpret_cast<uint4*>(out + gr * out_n + o0 + c) =
+          *reinterpret_cast<const uint4*>(stage_out + r * OUT_LD + c);
+  }
+}
+
+template <int EPI>
+int launch_eva(const void* a, const void* w, const void* bias, void* out, int M, int N, int K,
+               RopeArgs rope, cudaStream_t s) {
+  CUtensorMap tm_a, tm_w;
+  if (!make_map(&tm_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, K, M, BM) ||
+      !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, N, K, BK))
+    return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (N + BN - 1) / BN;
+  const long long tiles = n_tiles * ((M + BM - 1) / BM);
+  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_eva<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WGMMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  gemm_bf16_eva<EPI><<<(unsigned)tiles, WGMMA_THREADS, WGMMA_SMEM, s>>>(
+      tm_a, tm_w, static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K,
+      (int)n_tiles, rope);
   return (int)cudaGetLastError();
 }
 
@@ -483,7 +627,32 @@ extern "C" int gemm_bias_epilogue(int dtype, const void* a, const void* w, const
     return launch<EPI_BIAS_GELU_BF16>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
   if (epi == EPI_BIAS32_RESIDUAL)
     return launch<EPI_BIAS32_RESIDUAL>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  if (epi == EPI_BIAS_GELU_ERF)
+    return launch<EPI_BIAS_GELU_ERF>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
   if (epi >= EPI_BIAS && epi <= EPI_BIAS_GELU)
     return launch<EPI_BLOCK>(dtype, a, w, bias, resid, out, M, N, K, epi, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The EVA02 epilogues, bf16 only: EPI_BIAS_ROPE with its tables (cos, sin:
+// (tokens - 1, dh) fp32), EPI_BIAS_SWIGLU into (M, N / 2), N a multiple of 16.
+extern "C" int gemm_bias_eva(int dtype, const void* a, const void* w, const void* bias,
+                             const void* cos, const void* sin, void* out, int M, int N, int K,
+                             int epi, int tokens, int rot_cols, int dh, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != PCK_BF16 || M < 0 || N < 1 || K < 1 || N % 8 || K % 8)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const RopeArgs rope{static_cast<const float*>(cos), static_cast<const float*>(sin), tokens,
+                      rot_cols, dh};
+  if (epi == EPI_BIAS_ROPE) {
+    if (tokens < 1 || dh < 2 || dh % 2 || rot_cols < 0 || rot_cols % dh)
+      return (int)cudaErrorInvalidValue;
+    return launch_eva<EPI_BIAS_ROPE>(a, w, bias, out, M, N, K, rope, s);
+  }
+  if (epi == EPI_BIAS_SWIGLU) {
+    if (N % 16) return (int)cudaErrorInvalidValue;
+    return launch_eva<EPI_BIAS_SWIGLU>(a, w, bias, out, M, N, K, rope, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -12,6 +12,20 @@
 // the row three times (sum, centred sum of squares, write); a row of
 // ViT-L width is 2 KB in bf16, so the second and third reads hit L1.
 // Statistics are reduced with warp shuffles, no shared memory.
+//
+// layernorm_sub_rows: the same LayerNorm over the first `width` values of
+// rows `stride` apart, with the lanes from width to stride written as 0 and
+// kept out of the statistics.  It replaces no TPU kernel: it is the EVA02
+// block's sub-LN over the SwiGLU hidden (ops/kernels.py::fused_eva_block),
+// whose width (2730 in EVA02-L) is padded to a multiple of 8 for the GEMMs'
+// 16-byte rows; the block's other sub-LN, over the attention output, has
+// no padded lanes and runs on layernorm_rows.  Bound
+// by bytes, as above; a warp reads its row in 16-byte pieces, three times
+// (sum, centred sum of squares, write; the second and third from L1), and
+// writes the row's whole stride.  A kernel of its own, so that a trace tells
+// the hidden's sub-LN from the LayerNorms.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -47,6 +61,57 @@ layernorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(LN_WARPS * 32)
+layernorm_sub_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                          const float* __restrict__ bias, T* __restrict__ out,
+                          int rows, int width, int stride, float eps) {
+  constexpr int V = 16 / sizeof(T);  // values in a 16-byte piece
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long row = (long)blockIdx.x * LN_WARPS + warp;
+  if (row >= rows) return;
+  const T* xr = x + row * stride;
+
+  float s = 0.f;
+  for (int p = lane * V; p < width; p += 32 * V) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(xr + p);
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (p + e < width) s += pck::to_f(v[e]);
+  }
+  const float mean = pck::warp_sum(s) / width;
+
+  float var = 0.f;
+  for (int p = lane * V; p < width; p += 32 * V) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(xr + p);
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      if (p + e < width) {
+        const float c = pck::to_f(v[e]) - mean;
+        var += c * c;
+      }
+  }
+  const float rstd = rsqrtf(pck::warp_sum(var) / width + eps);
+
+  T* orow = out + row * stride;
+  for (int p = lane * V; p < stride; p += 32 * V) {
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (p < width) raw = *reinterpret_cast<const uint4*>(xr + p);
+    const T* v = reinterpret_cast<const T*>(&raw);
+    uint4 res;
+    T* o = reinterpret_cast<T*>(&res);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int i = p + e;
+      o[e] = pck::from_f<T>(i < width ? (pck::to_f(v[e]) - mean) * rstd * scale[i] + bias[i]
+                                      : 0.f);
+    }
+    *reinterpret_cast<uint4*>(orow + p) = res;
+  }
+}
+
+template <typename T>
 void launch(const void* x, const void* scale, const void* bias, void* out,
             int rows, int d, float eps, cudaStream_t stream) {
   const int blocks = (rows + LN_WARPS - 1) / LN_WARPS;
@@ -65,6 +130,27 @@ extern "C" int layernorm_rows(int dtype, const void* x, const void* scale,
     launch<__nv_bfloat16>(x, scale, bias, out, rows, d, eps, s);
   else if (dtype == PCK_F32)
     launch<float>(x, scale, bias, out, rows, d, eps, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int layernorm_sub_rows(int dtype, const void* x, const void* scale,
+                                  const void* bias, void* out, int rows, int width, int stride,
+                                  float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (width < 1 || width > stride || stride % 8 || rows < 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  const int blocks = (rows + LN_WARPS - 1) / LN_WARPS;
+  if (dtype == PCK_BF16)
+    layernorm_sub_rows_kernel<__nv_bfloat16><<<blocks, LN_WARPS * 32, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), rows, width, stride,
+        eps);
+  else if (dtype == PCK_F32)
+    layernorm_sub_rows_kernel<float><<<blocks, LN_WARPS * 32, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(scale),
+        static_cast<const float*>(bias), static_cast<float*>(out), rows, width, stride, eps);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -206,8 +206,11 @@ def save_serving_bundle(
     other rows.  ``int8`` makes a W8A8 bundle: the loader quantizes the
     stored weights (``quantize_for_serving``) and every call runs K3, on
     the card or, on the CPU, its plain version; it never falls back to
-    bf16.  The towers' int8 layers are not stored.
+    bf16.  The towers' int8 layers are not stored.  A bundle holds OpenAI's
+    towers: an EVA02-CLIP backbone raises.
     """
+    if getattr(cfg, "is_eva", False):
+        raise ValueError(f"{cfg.name}: serving bundles hold OpenAI's towers, not EVA02's")
     sizes = sorted({int(batch_size), *(int(b) for b in (batch_sizes or ()))})
     if any(b < 1 for b in sizes):
         raise ValueError(f"batch sizes must be >= 1, got {sizes}")

@@ -15,8 +15,10 @@ from protoclip_tpu_torch.models.adapters import (
 )
 from protoclip_tpu_torch.models.clip import (
     BACKBONE_CONFIGS,
+    PORT_BACKBONE_CONFIGS,
     CLIPConfig,
     available_backbones,
+    backbone_config,
     cast_params,
     clip_forward,
     convert_clip_state_dict,
@@ -41,8 +43,10 @@ __all__ = [
     "apply_adapter",
     "init_adapter",
     "BACKBONE_CONFIGS",
+    "PORT_BACKBONE_CONFIGS",
     "CLIPConfig",
     "available_backbones",
+    "backbone_config",
     "cast_params",
     "clip_forward",
     "convert_clip_state_dict",

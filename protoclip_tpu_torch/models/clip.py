@@ -4,6 +4,10 @@ of ``protoclip_tpu/models/clip.py``).
 The same 7 OpenAI backbones, with the architecture taken from the registry
 or inferred from a state dict's tensor shapes: the ViT towers
 (``models/vit.py``) and the ModifiedResNet towers (``models/resnet.py``).
+Beside them the port's own registry (:data:`PORT_BACKBONE_CONFIGS`) holds
+EVA02-CLIP-L/14-336, whose image tower is EVA02's (``models/eva.py``) and
+whose text tower is OpenAI's with the exact GELU, read from EVA-CLIP's
+state-dict layout.  K3, the W8A8 serving mode, does not run it.
 
 Parameters are nested dicts of tensors.  Transformer blocks are a list of
 per-layer dicts whose attention carries the fused ``wqkv`` (D, 3D) and
@@ -28,9 +32,11 @@ import numpy as np
 import torch
 
 from protoclip_tpu_torch.device import DeviceLike, resolve_device
+from protoclip_tpu_torch.models import eva as _eva
 from protoclip_tpu_torch.models import resnet as _resnet
 from protoclip_tpu_torch.models import text as _text
 from protoclip_tpu_torch.models import vit as _vit
+from protoclip_tpu_torch.obs.profiler import span
 from protoclip_tpu_torch.ops.kernels import int8_enabled, quantize_block
 from protoclip_tpu_torch.ops.proto import l2_normalize
 
@@ -55,10 +61,21 @@ class CLIPConfig:
     # 64-dims-per-head rule).
     n_vision_heads: Optional[int] = None
     n_text_heads: Optional[int] = None
+    # The image tower's block: OpenAI's ("clip") or EVA02's ("eva02", with
+    # its SwiGLU width and the grid its RoPE was pretrained at); the text
+    # MLP's activation ("quick_gelu", or "gelu" in EVA02-CLIP).
+    vision_block: str = "clip"
+    vision_mlp_width: Optional[int] = None
+    rope_pt_grid: Optional[int] = None
+    text_act: str = "quick_gelu"
 
     @property
     def is_vit(self) -> bool:
         return self.vision_patch_size is not None
+
+    @property
+    def is_eva(self) -> bool:
+        return self.vision_block == "eva02"
 
     @property
     def vision_heads(self) -> int:
@@ -86,8 +103,25 @@ BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
 }
 
 
+# Backbones of the port alone, kept apart from the JAX package's registry.
+# EVA02-CLIP-L/14-336 (baaivision/EVA EVA-CLIP model_configs/
+# EVA02-CLIP-L-14-336.json): vision 1024 / 24 / 16 heads of 64, patch 14 at
+# 336 px, SwiGLU hidden int(1024 * 2.6667) = 2730, RoPE pretrained at
+# pt_hw_seq_len 16; text 768 / 12 / 12 with nn.GELU; embed 768.
+PORT_BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
+    "EVA02-CLIP-L-14-336": CLIPConfig(
+        "EVA02-CLIP-L-14-336", 768, 336, 24, 1024, 14, transformer_width=768,
+        vision_block="eva02", vision_mlp_width=2730, rope_pt_grid=16, text_act="gelu"),
+}
+
+
 def available_backbones() -> list:
     return list(BACKBONE_CONFIGS)
+
+
+def backbone_config(name: str) -> Optional[CLIPConfig]:
+    """A backbone of either registry by name, or None."""
+    return BACKBONE_CONFIGS.get(name) or PORT_BACKBONE_CONFIGS.get(name)
 
 
 # -- apply ------------------------------------------------------------------
@@ -98,6 +132,8 @@ def encode_image(params: Params, images: torch.Tensor, cfg: CLIPConfig,
     """(B, H, W, 3) preprocessed images -> (B, embed_dim) features.  ``int8``
     picks a ViT's block mode (None: ``$PROTOCLIP_INT8``); a ResNet tower
     has no transformer blocks."""
+    if cfg.is_eva:
+        return _eva.apply_eva(params["visual"], images, cfg, int8=int8)
     if cfg.is_vit:
         return _vit.apply_vit(params["visual"], images, cfg, int8=int8)
     return _resnet.apply_resnet(params["visual"], images, cfg)
@@ -124,10 +160,17 @@ def clip_forward(params: Params, images: torch.Tensor, tokens: torch.Tensor,
 
 def init_clip_params(rng: np.random.Generator, cfg: CLIPConfig,
                      dtype: torch.dtype = torch.float32) -> Params:
-    """Random CLIP parameters from a numpy generator (CPU tensors)."""
-    init_visual = _vit.init_vit_params if cfg.is_vit else _resnet.init_resnet_params
+    """Random CLIP parameters from a numpy generator (CPU tensors).  An
+    EVA02 tower is drawn in EVA-CLIP's layout and converted
+    (:func:`models.eva.visual_from_state_dict`)."""
+    if cfg.is_eva:
+        visual = cast_params(_eva.visual_from_state_dict(
+            _eva.random_visual_state_dict(rng, cfg), cfg), dtype)
+    else:
+        init_visual = _vit.init_vit_params if cfg.is_vit else _resnet.init_resnet_params
+        visual = init_visual(rng, cfg, dtype)
     return {
-        "visual": init_visual(rng, cfg, dtype),
+        "visual": visual,
         "text": _text.init_text_params(rng, cfg, dtype),
         "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32),
     }
@@ -257,8 +300,49 @@ def _np(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float32)
 
 
+def _count_layers(sd: Dict[str, Any], prefix: str, suffix: str) -> int:
+    return len({k.split(".")[prefix.count(".") + 1] for k in sd
+                if k.startswith(prefix + ".") and k.endswith(suffix)})
+
+
+def _infer_eva_config(sd: Dict[str, Any]) -> CLIPConfig:
+    """EVA-CLIP's layout (``visual.patch_embed``, ``visual.blocks``,
+    ``text.*``).  The RoPE pretraining grid is no shape: a registered
+    backbone of the same shapes gives it, else EVA02-CLIP's 16."""
+    if "visual.blocks.0.attn.q_proj.weight" not in sd or "visual.blocks.0.mlp.w3.weight" not in sd:
+        raise ValueError("an EVA-CLIP state dict without separate q/k/v projections and a SwiGLU "
+                         "MLP (subln, naiveswiglu): only EVA02's sub-LN block is supported")
+    pe = sd["visual.patch_embed.proj.weight"]
+    width, patch = int(pe.shape[0]), int(pe.shape[-1])
+    resolution = patch * round((sd["visual.pos_embed"].shape[-2] - 1) ** 0.5)
+    layers = _count_layers(sd, "visual.blocks", ".norm1.weight")
+    mlp = int(sd["visual.blocks.0.mlp.w1.weight"].shape[0])
+    known = next((c for c in PORT_BACKBONE_CONFIGS.values()
+                  if (c.vision_width, c.vision_layers, c.vision_patch_size, c.image_resolution,
+                      c.vision_mlp_width) == (width, layers, patch, resolution, mlp)), None)
+    return CLIPConfig(
+        known.name if known else "custom",
+        int(sd["visual.head.weight"].shape[0]),
+        resolution,
+        layers,
+        width,
+        patch,
+        int(sd["text.positional_embedding"].shape[0]),
+        int(sd["text.token_embedding.weight"].shape[0]),
+        int(sd["text.ln_final.weight"].shape[0]),
+        _count_layers(sd, "text.transformer.resblocks", ".ln_1.weight"),
+        vision_block="eva02",
+        vision_mlp_width=mlp,
+        rope_pt_grid=known.rope_pt_grid if known else _eva.DEFAULT_PT_GRID,
+        text_act="gelu",
+    )
+
+
 def infer_config_from_state_dict(sd: Dict[str, Any]) -> CLIPConfig:
-    """Shape-based architecture inference (ref ``clip/model.py:397-420``)."""
+    """Shape-based architecture inference (ref ``clip/model.py:397-420``);
+    EVA-CLIP's layout by :func:`_infer_eva_config`."""
+    if "visual.patch_embed.proj.weight" in sd:
+        return _infer_eva_config(sd)
     if "visual.proj" in sd:
         vision_width = sd["visual.conv1.weight"].shape[0]
         vision_layers = len(
@@ -377,10 +461,13 @@ def _convert_resnet(sd: Dict[str, np.ndarray], cfg: CLIPConfig) -> Params:
 
 def convert_clip_state_dict(sd: Dict[str, Any], cfg: Optional[CLIPConfig] = None
                             ) -> Tuple[CLIPConfig, Params]:
-    """OpenAI CLIP torch state dict -> (config, fp32 CPU parameters)."""
+    """OpenAI CLIP torch state dict, or EVA-CLIP's, -> (config, fp32 CPU
+    parameters)."""
     sd = {k: _np(v) for k, v in sd.items()
           if k not in ("input_resolution", "context_length", "vocab_size")}
     cfg = cfg or infer_config_from_state_dict(sd)
+    if cfg.is_eva:
+        return cfg, _convert_eva(sd, cfg)
     params: Params = {
         "visual": _convert_vit(sd, cfg) if cfg.is_vit else _convert_resnet(sd, cfg),
         "text": {
@@ -395,7 +482,25 @@ def convert_clip_state_dict(sd: Dict[str, Any], cfg: Optional[CLIPConfig] = None
     return cfg, params
 
 
-_FP32_KEYS = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final")
+def _convert_eva(sd: Dict[str, np.ndarray], cfg: CLIPConfig) -> Params:
+    """EVA-CLIP: ``visual.*`` to the EVA02 tower; ``text.*``, OpenAI's text
+    tower under the ``text.`` prefix; ``logit_scale``."""
+    t = "text."
+    return {
+        "visual": _eva.visual_from_state_dict(sd, cfg),
+        "text": {
+            "token_embedding": _t(sd[t + "token_embedding.weight"]),
+            "positional_embedding": _t(sd[t + "positional_embedding"]),
+            "blocks": _blocks_from_state_dict(sd, t + "transformer", cfg.transformer_layers),
+            "ln_final": _ln(sd[t + "ln_final.weight"], sd[t + "ln_final.bias"]),
+            "text_projection": _t(sd[t + "text_projection"]),
+        },
+        "logit_scale": _t(sd["logit_scale"]),
+    }
+
+
+# LayerNorm affine, the EVA02 block's sub-LNs and its RoPE tables stay fp32
+_FP32_KEYS = ("ln_1", "ln_2", "ln_pre", "ln_post", "ln_final", "ln_inner", "ln_ffn", "rope")
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
@@ -424,7 +529,11 @@ def quantize_for_serving(params: Params) -> Params:
     quantize_block`) beside each tower's ``blocks``, as
     ``protoclip_tpu.models.clip.quantize_for_serving`` (``clip.py:353-373``)
     does.  The towers pick it up when ``$PROTOCLIP_INT8`` is on, so the
-    weights are quantized once, here, and not on every encode."""
+    weights are quantized once, here, and not on every encode.  An EVA02
+    tower (its ``rope`` tables) raises: K3 has no EVA02 block."""
+    if "rope" in params.get("visual", {}):
+        raise ValueError("the W8A8 serving mode (K3, $PROTOCLIP_INT8) has no EVA02 block: "
+                         "run EVA02-CLIP backbones in bf16")
     out = dict(params)
     for tower in ("visual", "text"):
         sub = params.get(tower)
@@ -505,7 +614,10 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
     release (``io/download.py``; a failed checksum raises, any other
     failure falls through) -> random initialization from the numpy ``seed``
     (with a warning on stderr: classification then carries no semantics),
-    unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  In the W8A8 mode
+    unless ``$PROTOCLIP_STRICT_WEIGHTS`` forbids it.  ``backbone`` names an
+    entry of either registry; a weights file's own layout and shapes decide
+    its architecture (OpenAI's or EVA-CLIP's), and its conversion is the
+    span ``load.convert`` (rows: the state dict's entries, bytes: theirs).  In the W8A8 mode
     (``int8``; None reads ``$PROTOCLIP_INT8``) the transformer stacks are
     quantized once here, from the weights in ``dtype``
     (:func:`quantize_for_serving`).
@@ -526,7 +638,11 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
                 print(f"[protoclip_tpu_torch] weight download failed ({exc}); "
                       "falling back to random init", file=sys.stderr)
     if path is not None:
-        cfg, params = convert_clip_state_dict(load_state_dict(path))
+        sd = load_state_dict(path)
+        with span("load.convert", rows=len(sd),
+                  nbytes=sum(v.numel() * v.element_size() for v in sd.values()
+                             if isinstance(v, torch.Tensor))):
+            cfg, params = convert_clip_state_dict(sd)
         return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev), int8)
 
     if os.environ.get("PROTOCLIP_STRICT_WEIGHTS", "0").lower() in ("1", "true", "on"):
@@ -534,12 +650,12 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
             f"no weights found for {backbone!r} and $PROTOCLIP_STRICT_WEIGHTS "
             f"forbids random initialization (set ${_WEIGHT_ENV} or pass weights_path)"
         )
-    if backbone not in BACKBONE_CONFIGS:
+    cfg = backbone_config(backbone)
+    if cfg is None:
         raise ValueError(
             f"unknown backbone {backbone!r} and no weights file to infer an "
-            f"architecture from; known: {sorted(BACKBONE_CONFIGS)}"
+            f"architecture from; known: {sorted(BACKBONE_CONFIGS) + sorted(PORT_BACKBONE_CONFIGS)}"
         )
-    cfg = BACKBONE_CONFIGS[backbone]
     print(
         f"[protoclip_tpu_torch] WARNING: no weights found for {backbone!r} "
         f"(set ${_WEIGHT_ENV}); using random initialization.",

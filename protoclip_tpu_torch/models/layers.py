@@ -2,9 +2,11 @@
 ``protoclip_tpu/models/layers.py``).
 
 CLIP's residual attention block: pre-LN multi-head attention and a pre-LN
-MLP with QuickGELU.  Blocks are a list of per-layer dicts (the JAX package
-stacks them along a leading axis for ``lax.scan``); each layer's attention
-holds the fused ``wqkv`` (D, 3D) and ``bqkv`` (3D,) built once at load.
+MLP with QuickGELU (or, in the EVA02-CLIP text towers, the exact GELU).
+Blocks are a list of per-layer dicts (the JAX package stacks them along a
+leading axis for ``lax.scan``); each layer's attention holds the fused
+``wqkv`` (D, 3D) and ``bqkv`` (3D,) built once at load.  The EVA02 image
+tower's blocks (``models/eva.py``) run :func:`eva_transformer`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from protoclip_tpu_torch.ops.activations import quick_gelu
 from protoclip_tpu_torch.ops.attention import _causal_mask, multi_head_attention
 from protoclip_tpu_torch.ops.kernels import (
+    fused_eva_block,
     fused_transformer_block,
     fused_transformer_block_int8,
     int8_enabled,
@@ -27,26 +30,31 @@ from protoclip_tpu_torch.ops.layernorm import layer_norm
 Params = Dict[str, torch.Tensor]
 
 
-def mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """4x-expansion MLP with QuickGELU, in the activation dtype."""
+_ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": torch.nn.functional.gelu}
+
+
+def mlp(x: torch.Tensor, p: Params, act: str = "quick_gelu") -> torch.Tensor:
+    """4x-expansion MLP with QuickGELU (``act``: or the exact ``gelu``), in
+    the activation dtype."""
     dtype = x.dtype
-    h = quick_gelu(x @ p["w_fc"].to(dtype) + p["b_fc"].to(dtype))
+    h = _ACTIVATIONS[act](x @ p["w_fc"].to(dtype) + p["b_fc"].to(dtype))
     return h @ p["w_proj"].to(dtype) + p["b_proj"].to(dtype)
 
 
 def residual_block(x: torch.Tensor, p: Dict, n_head: int,
-                   mask: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
+                   mask: Optional[torch.Tensor] = None, causal: bool = False,
+                   act: str = "quick_gelu") -> torch.Tensor:
     x = x + multi_head_attention(
         layer_norm(x, p["ln_1"]["scale"], p["ln_1"]["bias"]), p["attn"], n_head, mask,
         causal=causal,
     )
-    return x + mlp(layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"]), p["mlp"])
+    return x + mlp(layer_norm(x, p["ln_2"]["scale"], p["ln_2"]["bias"]), p["mlp"], act)
 
 
 def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
                 mask: Optional[torch.Tensor] = None, causal: bool = False,
                 qblocks: Optional[List[Dict]] = None,
-                int8: Optional[bool] = None) -> torch.Tensor:
+                int8: Optional[bool] = None, act: str = "quick_gelu") -> torch.Tensor:
     """Run the residual blocks in order.
 
     Without an explicit mask every layer is one call of K2
@@ -61,10 +69,15 @@ def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
     made at load.  Without them the blocks are quantized here, once per
     call.  ``int8`` picks the mode explicitly (a serving bundle carries its
     own); None reads ``$PROTOCLIP_INT8``.
+
+    ``act``: the MLP's activation (``quick_gelu``, or ``gelu`` for the
+    EVA02-CLIP text towers, which K3 does not run: it raises there).
     """
     if int8 is None:
         int8 = int8_enabled()
     if mask is None and int8:
+        if act != "quick_gelu":
+            raise ValueError(f"the W8A8 serving block (K3, $PROTOCLIP_INT8) has no {act!r} MLP")
         if qblocks is None:
             qblocks = [quantize_block(block) for block in blocks]
         for qblock in qblocks:
@@ -72,9 +85,20 @@ def transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
         return x
     for block in blocks:
         if mask is None:
-            x = fused_transformer_block(x, block, n_head, causal=causal)
+            x = fused_transformer_block(x, block, n_head, causal=causal, act=act)
         else:
-            x = residual_block(x, block, n_head, mask, causal=causal)
+            x = residual_block(x, block, n_head, mask, causal=causal, act=act)
+    return x
+
+
+def eva_transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
+                    rope: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Run EVA02 image blocks in order, each one call of
+    ``ops.kernels.fused_eva_block`` (its kernel chain on the card, its
+    plain version on the CPU), with the tower's RoPE tables ``rope``
+    (``cos``, ``sin``: (L - 1, head_dim) fp32)."""
+    for block in blocks:
+        x = fused_eva_block(x, block, n_head, rope["cos"], rope["sin"])
     return x
 
 

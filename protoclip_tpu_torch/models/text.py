@@ -14,7 +14,8 @@ from protoclip_tpu_torch.ops.layernorm import layer_norm
 def apply_text(params: Dict, tokens: torch.Tensor, cfg,
                int8: Optional[bool] = None) -> torch.Tensor:
     """Encode token ids (B, context) -> embeddings (B, embed_dim); ``int8``
-    as in :func:`layers.transformer`.
+    as in :func:`layers.transformer`, the MLP's activation
+    ``cfg.text_act``.
 
     The sequence feature is taken at the EOT position: the argmax token id,
     since EOT is the largest id in any sequence.
@@ -30,7 +31,7 @@ def apply_text(params: Dict, tokens: torch.Tensor, cfg,
     rows = tokens.clamp(max=params["token_embedding"].shape[0] - 1)
     x = params["token_embedding"][rows] + params["positional_embedding"].to(dtype)
     x = transformer(x, params["blocks"], cfg.transformer_heads, causal=True,
-                    qblocks=params.get("blocks_q"), int8=int8)
+                    qblocks=params.get("blocks_q"), int8=int8, act=cfg.text_act)
     x = layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
     eot = tokens.argmax(dim=-1)
     feats = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -32,8 +32,16 @@ c_int, c_ptr, c_float, c_i64 = ctypes.c_int, ctypes.c_void_p, ctypes.c_float, ct
 # C signatures of csrc/*.cu: every pointer and the stream as c_void_p
 _SIGNATURES = {
     "layernorm_rows": (c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_float, c_ptr]),
+    "layernorm_sub_rows": (
+        c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_float, c_ptr],
+    ),
     "gemm_bias_epilogue": (
         c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_ptr],
+    ),
+    "gemm_bias_eva": (
+        c_int,
+        [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_int,
+         c_int, c_int, c_ptr],
     ),
     "attention_packed": (
         c_int,

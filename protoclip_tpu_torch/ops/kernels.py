@@ -23,6 +23,19 @@ activations quantized per row at four points:
 K1 (``fused_attention_packed``) and K4 (``fused_attention``, head-major)
 are two more entries to ``attention_packed``.
 
+The EVA02 image block of the EVA02-CLIP backbones (``fused_eva_block``; the
+JAX package has no such block, so it replaces no TPU kernel) is a chain of
+the same kernels with three more epilogues and a strided LayerNorm:
+
+    layernorm_rows -> gemm_bias_eva(QKV + bias + RoPE on q and k)
+    -> attention_packed -> layernorm_rows(inner LN, eps 1e-6)
+    -> gemm_bias_epilogue(out-proj + residual) -> layernorm_rows
+    -> gemm_bias_eva(w1 | w2 interleaved + SwiGLU) -> layernorm_sub_rows(ffn LN)
+    -> gemm_bias_epilogue(w3 + residual)
+
+and its text tower's MLP takes the exact-GELU fc epilogue
+(``bias_gelu_erf``).
+
 The block-variant bench (S1, ``scripts/bench_block_variants.py``, ported as
 ``ops/block_variants.py``) moves those cast points.  Its modes are modes of
 the same kernels: q rounded to the activation dtype before the scores and
@@ -55,7 +68,10 @@ from protoclip_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # PCK_F32 / PCK_BF16 in csrc/common.cuh
 _EPILOGUES = {"bias": 0, "bias_residual": 1, "bias_gelu": 2, "bias_gelu_bf16": 3,
-              "bias32_residual": 4}
+              "bias32_residual": 4, "bias_gelu_erf": 7}
+_EVA_EPILOGUES = {"bias_rope": 5, "bias_swiglu": 6}  # gemm_bias_eva, bf16 only
+# the fc epilogue of a block's MLP activation
+FC_EPILOGUES = {"quick_gelu": "bias_gelu", "gelu": "bias_gelu_erf"}
 _RESIDUAL_EPILOGUES = ("bias_residual", "bias32_residual")
 _INT8_EPILOGUES = {"dequant_bias": 0, "dequant_bias_residual": 1, "dequant_bias_gelu": 2,
                    "dequant_bias_gelu_bf16": 3, "dequant_bias_f32": 4,
@@ -68,6 +84,7 @@ QUANT_FLOOR = 1e-6  # smallest amax a scale is taken from (pallas_kernels.py:465
 SMEM_PER_BLOCK = 232_448  # opt-in dynamic shared memory of one H100 block
 MAX_HEAD_DIM = 128  # ATT_MAX_DH in csrc/attention_packed.cu
 LN_EPS = 1e-5
+EVA_LN_EPS = 1e-6  # every LayerNorm of an EVA02 image tower
 PIECE = 8  # elements the GEMM's and attention's sizes and strides are multiples of
 INT8_K_PIECE = 16  # int8 K: the int8 GEMM's TMA rows are whole 16-byte pieces
 QUANT_MAX_WIDTH = 4096  # widest row quant_rows.cu holds in registers
@@ -83,6 +100,13 @@ LAUNCHES: Dict[str, int] = {
     "gemm_int8_epilogue": 0,
     "fused_transformer_block_int8": 0,
     "fused_attention": 0,
+    # the EVA02-CLIP backbones' kernel and modes; each mode's launch also
+    # counts under its kernel's name
+    "layernorm_sub_rows": 0,
+    "gemm_bias_epilogue.bias_rope": 0,
+    "gemm_bias_epilogue.bias_swiglu": 0,
+    "gemm_bias_epilogue.bias_gelu_erf": 0,
+    "fused_eva_block": 0,
     # modes of the kernels above that only the block-variant bench runs;
     # each launch also counts under its kernel's name
     "attention_packed.q_round": 0,
@@ -103,7 +127,7 @@ LAUNCHES: Dict[str, int] = {
     "attention_int8": 0,
     "qkv_sum": 0,
 }
-# the modes the main paths run, counted under their kernel's name alone
+# the modes OpenAI's blocks run, counted under their kernel's name alone
 _MAIN_MODES = ("softmax", "bias", "bias_residual", "bias_gelu", "dequant_bias",
                "dequant_bias_residual", "dequant_bias_gelu", "dyn")
 
@@ -188,7 +212,8 @@ def layernorm_rows_plain(x, scale, bias, eps: float = LN_EPS):
 
 
 def layernorm_rows(x, scale, bias, eps: float = LN_EPS):
-    """``x`` (..., D) in the activation dtype; ``scale``/``bias`` (D,) fp32."""
+    """``x`` (..., D) in the activation dtype; ``scale``/``bias`` (D,) fp32.
+    ``eps``: 1e-5 in OpenAI's towers, :data:`EVA_LN_EPS` in EVA02's."""
     if not x.is_cuda:
         return layernorm_rows_plain(x, scale, bias, eps)
     d = x.shape[-1]
@@ -207,6 +232,41 @@ def layernorm_rows(x, scale, bias, eps: float = LN_EPS):
         "layernorm_rows",
     )
     _count("layernorm_rows")
+    return out
+
+
+def layernorm_sub_rows_plain(x, scale, bias, eps: float = EVA_LN_EPS):
+    """LayerNorm over the first ``W = scale.shape[0]`` values of each row of
+    ``x`` (..., S), as :func:`layernorm_rows_plain`; the ``S - W`` lanes
+    past them come out 0 and enter no statistic."""
+    w = scale.shape[0]
+    y = layernorm_rows_plain(x[..., :w], scale, bias, eps)
+    return torch.nn.functional.pad(y, (0, x.shape[-1] - w))
+
+
+def layernorm_sub_rows(x, scale, bias, eps: float = EVA_LN_EPS):
+    """The SwiGLU hidden's sub-LN of an EVA02 block (``csrc/layernorm_rows.cu``,
+    its own kernel):
+    ``x`` (..., S) contiguous in the activation dtype, S a multiple of 8;
+    ``scale``/``bias`` (W,) fp32 with W <= S, the row's valid width."""
+    if not x.is_cuda:
+        return layernorm_sub_rows_plain(x, scale, bias, eps)
+    stride, width = x.shape[-1], scale.shape[0]
+    _require_cuda("layernorm_sub_rows", x.dtype, x=x)
+    _require_cuda("layernorm_sub_rows", torch.float32, scale=scale, bias=bias)
+    if bias.shape != (width,) or not 0 < width <= stride:
+        raise ValueError(f"layernorm_sub_rows: scale/bias ({width},) against rows of {stride}")
+    require_pieces("layernorm_sub_rows", {"row stride": stride}, {"x": x})
+    out = torch.empty_like(x)
+    lib = _build.load_library()
+    _build.check(
+        lib.layernorm_sub_rows(
+            _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            x.numel() // stride, width, stride, eps, _stream(),
+        ),
+        "layernorm_sub_rows",
+    )
+    _count("layernorm_sub_rows")
     return out
 
 
@@ -240,12 +300,16 @@ def gemm_bias_epilogue_plain(a, w, bias, epilogue: str, residual=None):
     - ``bias_gelu``:       T(QuickGELU(acc + f32(b))) in fp32  (fc)
     - ``bias_gelu_bf16``:  QuickGELU of T(acc + f32(b)) op by op in T
     - ``bias32_residual``: T(residual + T(acc + b)), ``b`` fp32
+    - ``bias_gelu_erf``:   T(GELU(acc + f32(b))) in fp32, the exact
+      (erf) GELU of the EVA02-CLIP text MLP
     """
     dtype = a.dtype
     acc = torch.matmul(a.float(), w.float())  # bf16 products are exact in fp32
     if epilogue == "bias_gelu":
         h = acc + bias.float()
         return (h * torch.sigmoid(1.702 * h)).to(dtype)
+    if epilogue == "bias_gelu_erf":
+        return torch.nn.functional.gelu(acc + bias.float()).to(dtype)
     if epilogue == "bias_gelu_bf16":
         return quick_gelu_rounded((acc + bias.float()).to(dtype))
     if epilogue == "bias32_residual":
@@ -294,6 +358,94 @@ def gemm_bias_epilogue(a, w, bias, epilogue: str, residual=None):
         "gemm_bias_epilogue",
     )
     _count("gemm_bias_epilogue", epilogue)
+    return out
+
+
+def rotate_pairs(t, cos, sin):
+    """``t * cos + rotate_half(t) * sin`` in ``t``'s dtype, with EVA's
+    ``rotate_half`` over interleaved pairs: (t0, t1) -> (-t1, t0)."""
+    turned = torch.stack((-t[..., 1::2], t[..., 0::2]), dim=-1).flatten(-2)
+    return t * cos + turned * sin
+
+
+def gemm_bias_rope_plain(a, w, bias, cos, sin, rot_cols: int):
+    """An EVA02 block's QKV: ``a`` (B, L, K) . ``w`` (K, N) with fp32
+    accumulation, y = T(acc + f32(b)) rounded once (``F.linear`` with its
+    bias, as EVA-CLIP computes q and v); then for tokens 1..L-1 of each
+    sequence, the first ``rot_cols`` columns (q and k) turned head by head
+    by the fp32 tables ``cos``/``sin`` (L - 1, dh):
+    T(rotate_pairs(f32(y))), rounded once as EVA-CLIP's ``type_as(v)``
+    after its fp32 RoPE."""
+    dtype = a.dtype
+    y = (torch.matmul(a.float(), w.float()) + bias.float()).to(dtype)
+    b, l, _ = y.shape
+    dh = cos.shape[-1]
+    q_k = y[:, 1:, :rot_cols].float().reshape(b, l - 1, rot_cols // dh, dh)
+    turned = rotate_pairs(q_k, cos[:, None, :], sin[:, None, :])
+    y[:, 1:, :rot_cols] = turned.reshape(b, l - 1, rot_cols).to(dtype)
+    return y
+
+
+def gemm_bias_swiglu_plain(a, w, bias):
+    """An EVA02 block's SwiGLU: ``w`` (K, 2H) holds w1 and w2 interleaved by
+    column, so acc = a . w + f32(b) in fp32 gives gate ``acc[..., 0::2]``
+    and value ``acc[..., 1::2]``; out (..., H) = T(silu(gate) * value),
+    rounded once."""
+    acc = torch.matmul(a.float(), w.float()) + bias.float()
+    return (torch.nn.functional.silu(acc[..., 0::2]) * acc[..., 1::2]).to(a.dtype)
+
+
+def _launch_eva_gemm(name: str, epilogue: str, a, w, bias, out, cos=None, sin=None,
+                     rot_cols: int = 0) -> None:
+    k, n = w.shape
+    tensors = dict(a=a, w=w, bias=bias)
+    if a.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the EVA02 epilogues run in bfloat16 on the card, not {a.dtype}")
+    _require_cuda(name, a.dtype, **tensors)
+    if a.shape[-1] != k or bias.shape != (n,):
+        raise ValueError(f"{name}: a {tuple(a.shape)}, w {tuple(w.shape)}, "
+                         f"bias {tuple(bias.shape)} do not chain")
+    require_pieces(name, {"K": k, "N": n}, {**tensors, "out": out})
+    tokens = dh = 0
+    if cos is not None:
+        _require_cuda(name, torch.float32, cos=cos, sin=sin)
+        tokens, dh = a.shape[-2], cos.shape[-1]
+        if cos.shape != (tokens - 1, dh) or sin.shape != cos.shape or dh % 2 or rot_cols % dh:
+            raise ValueError(f"{name}: RoPE tables {tuple(cos.shape)} for {tokens} tokens, "
+                             f"{rot_cols} turned columns")
+        require_pieces(name, {}, {"cos": cos, "sin": sin})
+    lib = _build.load_library()
+    _build.check(
+        lib.gemm_bias_eva(
+            _DTYPES[a.dtype], a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+            out.data_ptr(), a.numel() // k, n, k, _EVA_EPILOGUES[epilogue], tokens, rot_cols,
+            dh, _stream(),
+        ),
+        name,
+    )
+    _count("gemm_bias_epilogue", epilogue)
+
+
+def gemm_bias_rope(a, w, bias, cos, sin, rot_cols: int):
+    """:func:`gemm_bias_rope_plain` on the card (``gemm_bias_eva``, the
+    ``bias_rope`` epilogue): ``a`` (B, L, K) and ``w``/``bias`` in bf16,
+    the tables fp32 (L - 1, dh)."""
+    if not a.is_cuda:
+        return gemm_bias_rope_plain(a, w, bias, cos, sin, rot_cols)
+    out = torch.empty(*a.shape[:-1], w.shape[1], dtype=a.dtype, device=a.device)
+    _launch_eva_gemm("gemm_bias_rope", "bias_rope", a, w, bias, out, cos, sin, rot_cols)
+    return out
+
+
+def gemm_bias_swiglu(a, w, bias):
+    """:func:`gemm_bias_swiglu_plain` on the card (``gemm_bias_eva``, the
+    ``bias_swiglu`` epilogue); ``w`` (K, 2H) with H a multiple of 8."""
+    if not a.is_cuda:
+        return gemm_bias_swiglu_plain(a, w, bias)
+    out = torch.empty(*a.shape[:-1], w.shape[1] // 2, dtype=a.dtype, device=a.device)
+    require_pieces("gemm_bias_swiglu", {"H": w.shape[1] // 2}, {})
+    _launch_eva_gemm("gemm_bias_swiglu", "bias_swiglu", a, w, bias, out)
     return out
 
 
@@ -465,12 +617,12 @@ def _block_args(block: dict, dtype: torch.dtype):
     )
 
 
-def _block_chain(x, p, n_head, causal, length, ln, gemm, attention):
+def _block_chain(x, p, n_head, causal, length, ln, gemm, attention, fc="bias_gelu"):
     d = x.shape[-1]
     qkv = gemm(ln(x, p["ln1s"], p["ln1b"]), p["wqkv"], p["bqkv"], "bias")
     attn = attention(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], n_head, causal, length)
     x = gemm(attn, p["wo"], p["bo"], "bias_residual", residual=x)
-    hid = gemm(ln(x, p["ln2s"], p["ln2b"]), p["wfc"], p["bfc"], "bias_gelu")
+    hid = gemm(ln(x, p["ln2s"], p["ln2b"]), p["wfc"], p["bfc"], fc)
     return gemm(hid, p["wproj"], p["bproj"], "bias_residual", residual=x)
 
 
@@ -483,36 +635,125 @@ def _check_block_input(x, n_head: int, length: Optional[int]) -> None:
 
 
 def fused_transformer_block_plain(x, block: dict, n_head: int, causal: bool = False,
-                                  length: Optional[int] = None):
+                                  length: Optional[int] = None, act: str = "quick_gelu"):
     """K2's plain version, with the TPU kernel's cast points.  Not
     ``layers.residual_block``: that one runs the MLP in the activation
-    dtype, while the kernel does the fc bias and QuickGELU in fp32."""
+    dtype, while the kernel does the fc bias and its activation in fp32."""
     _check_block_input(x, n_head, length)
     return _block_chain(
         x, _block_args(block, x.dtype), n_head, causal, length,
         layernorm_rows_plain, gemm_bias_epilogue_plain, fused_attention_packed_plain,
+        FC_EPILOGUES[act],
     )
 
 
 def fused_transformer_block(x, block: dict, n_head: int, causal: bool = False,
-                            length: Optional[int] = None):
+                            length: Optional[int] = None, act: str = "quick_gelu"):
     """K2: one CLIP residual block (``pallas_kernels.py:390``).
 
     ``x`` (B, L, D); ``block`` holds one layer's ``ln_1``, ``attn``
     (``wqkv`` (D, 3D), ``bqkv``, ``wo``, ``bo``), ``ln_2`` and ``mlp``.
     ``length``: number of valid rows when the caller padded L; keys beyond
     it are masked and the output keeps the padded shape.  L needs no
-    padding here: the kernels mask by length.
+    padding here: the kernels mask by length.  ``act``: the MLP's
+    activation, OpenAI's ``quick_gelu`` or the exact ``gelu`` of the
+    EVA02-CLIP text towers (:data:`FC_EPILOGUES`).
     """
     if not x.is_cuda:
-        return fused_transformer_block_plain(x, block, n_head, causal, length)
+        return fused_transformer_block_plain(x, block, n_head, causal, length, act)
     _check_block_input(x, n_head, length)
     _require_cuda("fused_transformer_block", x.dtype, x=x)
     out = _block_chain(
         x, _block_args(block, x.dtype), n_head, causal, length,
-        layernorm_rows, gemm_bias_epilogue, attention_packed,
+        layernorm_rows, gemm_bias_epilogue, attention_packed, FC_EPILOGUES[act],
     )
     _count("fused_transformer_block")
+    return out
+
+
+# -- the EVA02 image block ---------------------------------------------------------------
+
+
+def _eva_block_args(block: dict, dtype: torch.dtype):
+    """One EVA02 layer (``models/eva.py``) in the activation dtype, its
+    LayerNorm parameters in fp32; casts that are no-ops for parameters
+    stored that way."""
+    attn, mlp = block["attn"], block["mlp"]
+
+    def ln(p):
+        return p["scale"].float(), p["bias"].float()
+
+    return dict(
+        ln1=ln(block["ln_1"]), ln2=ln(block["ln_2"]), ln_inner=ln(attn["ln_inner"]),
+        ln_ffn=ln(mlp["ln_ffn"]),
+        wqkv=attn["wqkv"].to(dtype), bqkv=attn["bqkv"].to(dtype),
+        wo=attn["wo"].to(dtype), bo=attn["bo"].to(dtype),
+        w12=mlp["w12"].to(dtype), b12=mlp["b12"].to(dtype),
+        w3=mlp["w3"].to(dtype), b3=mlp["b3"].to(dtype),
+    )
+
+
+def _eva_block_chain(x, p, n_head, cos, sin, ln, ln_sub, gemm, gemm_rope, gemm_swiglu,
+                     attention):
+    d = x.shape[-1]
+    qkv = gemm_rope(ln(x, *p["ln1"], EVA_LN_EPS), p["wqkv"], p["bqkv"], cos, sin, 2 * d)
+    attn = attention(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], n_head)
+    attn = ln(attn, *p["ln_inner"], EVA_LN_EPS)
+    x = gemm(attn, p["wo"], p["bo"], "bias_residual", residual=x)
+    hid = gemm_swiglu(ln(x, *p["ln2"], EVA_LN_EPS), p["w12"], p["b12"])
+    hid = ln_sub(hid, *p["ln_ffn"], EVA_LN_EPS)
+    return gemm(hid, p["w3"], p["b3"], "bias_residual", residual=x)
+
+
+def _check_eva_input(x, n_head: int, cos) -> None:
+    _check_block_input(x, n_head, None)
+    l, d = x.shape[-2:]
+    if cos.shape != (l - 1, d // n_head):
+        raise ValueError(f"fused_eva_block: RoPE tables {tuple(cos.shape)} for {l} tokens of "
+                         f"{n_head} heads of {d // n_head}")
+
+
+def fused_eva_block_plain(x, block: dict, n_head: int, cos, sin):
+    """The EVA02 block's plain version.  Cast points (T: the activation
+    dtype; LayerNorms with fp32 statistics and affine, rounded once, eps
+    1e-6):
+
+    - h = T(LN1(x)); qkv = T(h . Wqkv + b) with bqkv = [bq, 0, bv]; q and
+      k of tokens 1.. turned by the fp32 RoPE tables and rounded once
+      (:func:`gemm_bias_rope_plain`);
+    - o = attention as K2's (fp32 scores and softmax, weights rounded to
+      T, PV in fp32 rounded once); o = T(LN_inner(o));
+    - x = T(x + T(T(o . Wo) + bo)), K2's ``bias_residual``;
+    - g = T(silu(h2 . W1 + b1) * (h2 . W2 + b2)) in fp32 from h2 =
+      T(LN2(x)) (:func:`gemm_bias_swiglu_plain`); g = T(LN_ffn(g)) over
+      its true width, the padded lanes 0;
+    - x = T(x + T(T(g . W3) + b3)).
+    """
+    _check_eva_input(x, n_head, cos)
+    return _eva_block_chain(
+        x, _eva_block_args(block, x.dtype), n_head, cos, sin, layernorm_rows_plain,
+        layernorm_sub_rows_plain, gemm_bias_epilogue_plain, gemm_bias_rope_plain,
+        gemm_bias_swiglu_plain, fused_attention_packed_plain,
+    )
+
+
+def fused_eva_block(x, block: dict, n_head: int, cos, sin):
+    """One EVA02 image block (EVA-CLIP ``eva_vit_model.py::Block`` with
+    ``subln``, ``naiveswiglu`` and ``rope``): pre-LN attention with 2D RoPE
+    on q and k of every token but the first, a LayerNorm on the attention
+    output before its projection, and a SwiGLU MLP with a LayerNorm on its
+    hidden.  ``x`` (B, L, D); ``block`` from ``models/eva.py``; ``cos``,
+    ``sin`` (L - 1, dh) fp32.  On the card the chain runs in bf16."""
+    if not x.is_cuda:
+        return fused_eva_block_plain(x, block, n_head, cos, sin)
+    _check_eva_input(x, n_head, cos)
+    _require_cuda("fused_eva_block", x.dtype, x=x)
+    out = _eva_block_chain(
+        x, _eva_block_args(block, x.dtype), n_head, cos, sin, layernorm_rows,
+        layernorm_sub_rows, gemm_bias_epilogue, gemm_bias_rope, gemm_bias_swiglu,
+        attention_packed,
+    )
+    _count("fused_eva_block")
     return out
 
 

@@ -979,3 +979,203 @@ def test_cuda_ragged_bank_batch_matches_the_padded_call(cuda_device, monkeypatch
     assert kernels.launch_counts()["fused_transformer_block"] == 24
     diff = float((got.float() - want.float()).abs().max())
     assert torch.equal(got, want), f"max |diff| {diff} over max |row| {float(want.abs().max())}"
+
+
+# -- EVA02-CLIP-L/14-336 ---------------------------------------------------------------------
+
+
+def _eva_reference():
+    """``tests/eva_reference.py``, loaded by its path: a package named
+    ``tests`` elsewhere on the path may shadow this directory."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "eva_reference", Path(__file__).with_name("eva_reference.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _eva_block(d, hidden, device, seed=0):
+    """One EVA02 layer converted from a seeded EVA-CLIP state dict, in bf16
+    with fp32 LayerNorms."""
+    from protoclip_tpu_torch.models import clip, eva
+
+    ref = _eva_reference()
+    t = dict(ref.TINY, width=d, heads=d // 64, layers=1, hidden=hidden, px=14 * 4)
+    sd = ref.eva_state_dict(seed, t, buffers=False)
+    cfg = clip.infer_config_from_state_dict(sd)
+    vis = clip.cast_params(eva.visual_from_state_dict({k: v.numpy() for k, v in sd.items()}, cfg),
+                           torch.bfloat16)
+    return clip.to_device(vis["blocks"][0], device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,D,hidden", [(2, 577, 1024, 2730), (3, 17, 128, 341)])
+def test_cuda_eva_kernels_match_plain(cuda_device, b, L, D, hidden):
+    """Each EVA02 kernel and mode against its plain version at the card's
+    bf16 bars: the RoPE QKV epilogue (the class token and v unturned), the
+    SwiGLU epilogue (a ragged hidden padded to a multiple of 8), the
+    hidden's sub-LN over a row wider than its valid width (padded lanes 0),
+    the attention output's on ``layernorm_rows`` at EVA02's eps, then the
+    whole block, with its launches."""
+    from protoclip_tpu_torch.models import eva
+
+    bf16, h = torch.bfloat16, D // 64
+    blk = _eva_block(D, hidden, cuda_device)
+    grid = int(round((L - 1) ** 0.5))
+    cos, sin = (t.to(cuda_device) for t in eva.rope_tables(grid, 16, 64))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(b, L, D, device=cuda_device, generator=g).to(bf16)
+    kernels.reset_launch_counts()
+    at, mlp = blk["attn"], blk["mlp"]
+    _assert_close(kernels.gemm_bias_rope(x, at["wqkv"], at["bqkv"], cos, sin, 2 * D),
+                  kernels.gemm_bias_rope_plain(x, at["wqkv"], at["bqkv"], cos, sin, 2 * D), bf16)
+    out = kernels.gemm_bias_rope(x, at["wqkv"], at["bqkv"], cos, sin, 2 * D)
+    plain = kernels.gemm_bias_epilogue_plain(x, at["wqkv"], at["bqkv"], "bias")
+    # T(acc + b) against T(T(acc) + b): the class token and v differ by an ulp at most
+    _assert_close(out[:, 0], plain[:, 0], bf16)
+    _assert_close(out[..., 2 * D:], plain[..., 2 * D:], bf16)
+    hid = kernels.gemm_bias_swiglu(x, mlp["w12"], mlp["b12"])
+    assert hid.shape == (b, L, eva.padded_hidden(hidden)) and not hid[..., hidden:].any()
+    _assert_close(hid, kernels.gemm_bias_swiglu_plain(x, mlp["w12"], mlp["b12"]), bf16)
+    ffn = mlp["ln_ffn"]
+    noisy = hid.clone()
+    noisy[..., hidden:] = 100.0
+    sub = kernels.layernorm_sub_rows(noisy, ffn["scale"], ffn["bias"])
+    assert not sub[..., hidden:].any()
+    _assert_close(sub, kernels.layernorm_sub_rows_plain(noisy, ffn["scale"], ffn["bias"]), bf16)
+    inner, eps = blk["attn"]["ln_inner"], kernels.EVA_LN_EPS
+    _assert_close(kernels.layernorm_rows(x, inner["scale"], inner["bias"], eps),
+                  kernels.layernorm_rows_plain(x, inner["scale"], inner["bias"], eps), bf16)
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"gemm_bias_epilogue": 3, "gemm_bias_epilogue.bias_rope": 2,
+                        "gemm_bias_epilogue.bias_swiglu": 1, "layernorm_sub_rows": 1,
+                        "layernorm_rows": 1}
+    kernels.reset_launch_counts()
+    _assert_close(kernels.fused_eva_block(x, blk, h, cos, sin),
+                  kernels.fused_eva_block_plain(x, blk, h, cos, sin), bf16)
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {
+        "layernorm_rows": 3, "layernorm_sub_rows": 1, "gemm_bias_epilogue": 4,
+        "gemm_bias_epilogue.bias_rope": 1, "gemm_bias_epilogue.bias_swiglu": 1,
+        "attention_packed": 1, "fused_eva_block": 1,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_cuda_exact_gelu_epilogue_and_sub_ln_match_plain(cuda_device, dtype):
+    """The text MLP's exact-GELU fc epilogue at the EVA02-CLIP text width
+    (77 tokens, 768 -> 3072), and the sub-LN, in both activation dtypes;
+    the text block with it, causal."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    a = torch.randn(4, 77, 768, device=cuda_device, generator=g).to(dtype)
+    w = (torch.randn(768, 3072, device=cuda_device, generator=g) * 768 ** -0.5).to(dtype)
+    bias = (torch.randn(3072, device=cuda_device, generator=g) * 0.1).to(dtype)
+    kernels.reset_launch_counts()
+    _assert_close(kernels.gemm_bias_epilogue(a, w, bias, "bias_gelu_erf"),
+                  kernels.gemm_bias_epilogue_plain(a, w, bias, "bias_gelu_erf"), dtype)
+    scale = torch.rand(700, device=cuda_device, generator=g) + 0.5
+    shift = torch.randn(700, device=cuda_device, generator=g) * 0.1
+    _assert_close(kernels.layernorm_sub_rows(a, scale, shift),
+                  kernels.layernorm_sub_rows_plain(a, scale, shift), dtype)
+    blk = _block(768, dtype, cuda_device)
+    _assert_close(kernels.fused_transformer_block(a, blk, 12, True, act="gelu"),
+                  kernels.fused_transformer_block_plain(a, blk, 12, True, act="gelu"), dtype)
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched["gemm_bias_epilogue.bias_gelu_erf"] == 2
+    assert launched["layernorm_sub_rows"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_attention_at_577_tokens_fits_shared_memory(cuda_device):
+    """EVA02-L/14 at 336 px: L = 577, dh = 64.  The bf16 attention holds a
+    head's whole K and V in shared memory: 188,928 bytes of the 232,448 a
+    block may take; against its plain version, with the K2 bars."""
+    from protoclip_tpu_torch.ops import _build
+
+    assert _build.load_library().attention_packed_smem_bytes(1, 577, 64) == 188_928
+    assert 188_928 <= kernels.SMEM_PER_BLOCK
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn(4, 577, 3 * 1024, device=cuda_device, generator=g).to(torch.bfloat16)
+    q, k, v = qkv[..., :1024], qkv[..., 1024:2048], qkv[..., 2048:]
+    _assert_close(kernels.attention_packed(q, k, v, 16),
+                  kernels.fused_attention_packed_plain(q, k, v, 16), torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_eva_tower_matches_the_fp32_reference(cuda_device, tmp_path):
+    """EVA02-CLIP-L/14-336 at its published widths through load_clip (a
+    seeded state dict in EVA-CLIP's layout), B = 16 in bf16, against the
+    plain fp32 reference on the card (TF32 off).  Bar: the worst row's
+    relative error under 5e-2, bf16 through 24 blocks (cosine 0.999)."""
+    from protoclip_tpu_torch.data.transforms import normalize_batch
+    from protoclip_tpu_torch.models import clip
+
+    ref_module = _eva_reference()
+    full = dict(ref_module.TINY, width=1024, heads=16, layers=24, px=336, hidden=2730, embed=768,
+                text_width=768, text_heads=12, text_layers=12, vocab=49408, context=77)
+    sd = ref_module.eva_state_dict(4, full)
+    path = tmp_path / "eva02_l14_336.pt"
+    torch.save(sd, path)
+    cfg, params = clip.load_clip("EVA02-CLIP-L-14-336", str(path), device=cuda_device, int8=False)
+    assert cfg == clip.PORT_BACKBONE_CONFIGS["EVA02-CLIP-L-14-336"]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    images = torch.randint(0, 256, (16, 336, 336, 3), device=cuda_device, generator=g,
+                           dtype=torch.uint8)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        port = clip.encode_image(params, normalize_batch(images, torch.bfloat16), cfg).double()
+    counts = kernels.launch_counts()
+    assert counts["fused_eva_block"] == 24 and counts["layernorm_sub_rows"] == 24
+    del params
+    torch.cuda.empty_cache()
+    ref = ref_module.EvaCLIP(sd, 16, 12, 16, device="cuda").encode_image(
+        normalize_batch(images)).double()
+    err = float(((port - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+    print(f"EVA02-L/14-336 B=16 bf16 against fp32: worst row {err:.4g}")
+    assert err < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["ViT-B/16", "ViT-L/14"])
+def test_cuda_vit_runs_only_k2s_kernels(cuda_device, backbone):
+    """OpenAI's ViTs launch K2's kernels alone, as many as before the EVA02
+    kernels were added (2 LayerNorms, 4 GEMMs, 1 attention a block), none
+    of the EVA02 modes; and the features are bit for bit a chain written
+    out of the same kernels with K2's epilogues."""
+    from protoclip_tpu_torch.models import clip
+
+    cfg, params = clip.load_clip(backbone, device=cuda_device, int8=False)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    n_px, layers = cfg.image_resolution, cfg.vision_layers
+    images = torch.randn(4, n_px, n_px, 3, device=cuda_device, generator=g).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = clip.encode_image(params, images, cfg)
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"layernorm_rows": 2 * layers, "gemm_bias_epilogue": 4 * layers,
+                        "attention_packed": layers, "fused_transformer_block": layers}
+    from protoclip_tpu_torch.models.vit import patchify
+    from protoclip_tpu_torch.ops.layernorm import layer_norm
+
+    vis = params["visual"]
+    with torch.inference_mode():
+        x = patchify(images, cfg.vision_patch_size) @ vis["patch_embed"]
+        cls = vis["class_embedding"].expand(x.shape[0], 1, x.shape[-1])
+        x = torch.cat([cls, x], dim=1) + vis["positional_embedding"]
+        x = layer_norm(x, vis["ln_pre"]["scale"], vis["ln_pre"]["bias"])
+        d, h = x.shape[-1], cfg.vision_heads
+        for blk in vis["blocks"]:
+            p = kernels._block_args(blk, x.dtype)
+            qkv = kernels.gemm_bias_epilogue(kernels.layernorm_rows(x, p["ln1s"], p["ln1b"]),
+                                             p["wqkv"], p["bqkv"], "bias")
+            a = kernels.attention_packed(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], h)
+            x = kernels.gemm_bias_epilogue(a, p["wo"], p["bo"], "bias_residual", x)
+            m = kernels.gemm_bias_epilogue(kernels.layernorm_rows(x, p["ln2s"], p["ln2b"]),
+                                           p["wfc"], p["bfc"], "bias_gelu")
+            x = kernels.gemm_bias_epilogue(m, p["wproj"], p["bproj"], "bias_residual", x)
+        want = layer_norm(x[:, 0], vis["ln_post"]["scale"], vis["ln_post"]["bias"]) @ vis["proj"]
+    assert torch.equal(got, want)
