@@ -193,10 +193,10 @@ Phases, one JSON line each on stdout:
              each serving bucket's CUDA graph), error, times and bound.
 
 The bf16 paths of the two kernels that carry the blocks run on the tensor
-cores: ``attention_packed.cu`` as mma.sync m16n8k16 (Q, K, V through
-cp.async into shared memory, a two-pass softmax over the whole row with
-the weights normalised before their bf16 rounding, P fed from registers)
-and ``gemm_bias_epilogue.cu`` as wgmma m64n128k16 on tiles that TMA brings
+cores: ``attention_packed.cu`` as wgmma m64n64k16 (a 64-row Q tile, K
+and V streamed by TMA through a 4-stage mbarrier ring, a two-pass softmax
+over the whole row with the weights normalised before their bf16
+rounding, P fed from registers) and ``gemm_bias_epilogue.cu`` as wgmma m64n128k16 on tiles that TMA brings
 through a 3-stage mbarrier ring, W read N-major through the descriptor's
 transpose bit.  fp32 stays exact on the CUDA cores: the GEMM on 128x128
 tiles from the same TMA ring (8x8 outputs a thread, float4 reads through
@@ -280,7 +280,7 @@ def phase_device(torch):
 
 # the kernels whose registers and spills the build reports: the tensor-core
 # kernels and the fp32 GEMM and attention
-PTXAS_KERNELS = ("attention_bf16_mma", "gemm_bf16_wgmma", "gemm_s8_wgmma", "attention_s8_mma",
+PTXAS_KERNELS = ("attention_bf16_wgmma", "gemm_bf16_wgmma", "gemm_s8_wgmma", "attention_s8_mma",
                  "gemm_f32_ring", "attention_f32_tiled")
 # builtin types (one letter in the Itanium mangling) that the kernels' templates take
 MANGLED_BUILTINS = {"f": "float"}
@@ -4534,6 +4534,29 @@ def phase_eva(torch, np):
           lambda: K.layernorm_rows_plain(x, *p["ln_inner"], K.EVA_LN_EPS),
           lambda: F.layer_norm(x, (d,), *(t.to(bf16) for t in p["ln_inner"])),
           2 * m * d * 2 + 2 * d * 4, 8 * m * d)
+    # the attention alone at the image block's shape, beside phase_times'
+    # ViT-B/16 row (B = 256, L = 197); SDPA as the library's time
+    qkv = torch.randn(EVA_BATCH, l, 3 * d, device="cuda", generator=g).to(bf16)
+    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+    # held alone at this length (the key ring wraps several times a block,
+    # the last key tile is 16 keys wide) in each mode, at the check phase's
+    # bars, with every key and with the last five masked
+    for mode in ("softmax", "q_round", "no_softmax"):
+        for length in (l, l - 5):
+            name = f"attention_packed.{mode}.length{length}"
+            checks[name] = bars_agreement(
+                K.attention_packed(*sl, h, False, length, mode),
+                K.fused_attention_packed_plain(*sl, h, False, length, mode), BARS["bfloat16"])
+            require(checks[name]["ok"], f"{name} against its plain version: {checks[name]}")
+
+    def heads(t):
+        return t.reshape(EVA_BATCH, l, h, d // h).transpose(1, 2)
+
+    entry("attention_packed", lambda: K.attention_packed(*sl, h),
+          lambda: K.fused_attention_packed_plain(*sl, h),
+          lambda: F.scaled_dot_product_attention(*map(heads, sl)),
+          4 * m * d * 2, attention_flops(EVA_BATCH, l, d, False))
+    del qkv, sl
     attn = attention_flops(EVA_BATCH, l, d, False)
     entry("fused_eva_block",
           lambda: K.fused_eva_block(x, blk, h, cos, sin),

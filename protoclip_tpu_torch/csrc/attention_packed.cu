@@ -8,44 +8,53 @@
 // the whole row in fp32 (max, exp, divide by the sum), weights rounded to
 // v's dtype, PV accumulated in fp32 and rounded once.
 //
-// Bound on the H100: bytes at CLIP's short sequences.  Per (batch, head)
-// it reads 3*L*dh values and writes L*dh, for 4*L^2*dh flops: at L=197,
-// dh=64 that is ~100 flops per byte, below the ~295 flop/byte bf16 ridge.
+// Bound on the H100: the exps.  Per (batch, head) it reads 3*L*dh values
+// and writes L*dh, for 4*L^2*dh flops: ~300 flops per byte at L = 577,
+// dh = 64, about the ~295 flop/byte bf16 ridge; ~100 at L = 197.  But the
+// whole-row softmax below takes two exps a score, and at dh = 64 the
+// card's ~3.9 T exp/s (16 a clock an SM) bound it before its three
+// products do: 2 L^2 exps against 6 L^2 dh flops at 989 TFLOP/s.
 //
-// bf16 design (tensor cores).  Grid (query tiles, heads, batch); a block
-// takes a tile of up to 128 query rows of one (batch, head), one warp per
-// 16 rows (the tile is L split evenly into ceil(L/128) parts, so no block
-// idles on a ragged tail).  Q, and the head's K and V rows below kend, go
-// into shared memory with 16-byte cp.async (Q and K in one group, V in a
-// second that lands while the scores run); rows from kend up to the next
-// multiple of 16, and columns from dh up to the padded head width DHP (32,
-// 64 or 128), are zero-filled, so a masked weight of 0 never meets an
-// uninitialised V value.  Rows are padded by 16 bytes, so ldmatrix reads
-// eight rows on eight distinct bank groups.  Scores are mma.sync.m16n8k16
-// bf16 -> fp32, A = Q by ldmatrix, B = K by ldmatrix (K's rows are the n
-// dimension, no transpose).  The softmax is over the whole row and not
-// online: pass 1 walks the keys in chunks of 64 for the row max and the sum
-// of exp(s - max) (the running sum is rescaled when the max grows, which
-// changes it by fp32 ulps only); pass 2 recomputes the chunk's scores (the
-// kernel is bound by bytes, the recompute is cheap), forms the weights
-// exp(s - max) * (1 / sum) normalised in fp32, rounds them to bf16 at the
-// TPU kernel's cast point, and runs PV with P straight from the accumulator
-// registers (the m16n8k16 C layout packed to bf16 is the A layout) and V by
-// ldmatrix.trans.  Holding the whole row in registers would need 34 n8
-// tiles (136 fp32 values a thread) at L=257; a chunk needs 32.  Causal:
-// key chunks and 16-key tiles wholly above a warp's last row are skipped,
-// the diagonal tile is masked.  The output is staged in the warp's own Q
-// rows and written with 16-byte stores.  The scale 1/sqrt(dh) is applied to
-// the fp32 accumulator: at dh = 64 (every backbone) 0.125 is exact, so this
-// equals (q * scale) . k up to the order of the sum; at dh = 32 (a test
-// geometry) it may differ by an fp32 ulp.  Per score the softmax costs a few
-// instructions, as in flash attention: exp(scale * (acc - max)) is
-// ex2.approx of one FMA with scale * log2(e) folded in (within ~1e-6
-// relative of expf, far below the bf16 rounding of the weights), the sum is
-// divided once a row and the weights are multiplied by its reciprocal, and
-// only the 16-key tiles that reach past length or the diagonal are masked.
-// Registers: chip_smoke.py's build phase reports ptxas's count for each
-// instantiation (PERF.md); none spills.
+// bf16 design (wgmma fed by a TMA ring; the GEMM's shape, hopper.cuh).
+// Grid (ceil(L/64) query tiles, heads, batch); a block is one consumer
+// warpgroup, which owns a 64-row query tile of one (batch, head), and one
+// producer warp, whose one thread loads the Q tile once and then streams
+// 64-key tiles through a 4-stage mbarrier ring: K's for the statistics
+// pass, then K's and V's in turn for the weights pass (full barriers count
+// the bytes, empty barriers the consumer threads), at every L.  One 4-D
+// tensor map a tensor, (dh, rows, heads, batch) with rows and heads in the
+// order of their strides, covers K1's packed tensors, K2/K3/EVA02's fused
+// (B, L, 3D) QKV slices and K4's head-major layout; boxes are 64 columns
+// x 64 rows with the 128-byte swizzle (two boxes at dh = 128), and TMA
+// zero-fills the columns past dh and the rows past L.  Shared memory does
+// not grow with L: five 8 KB tiles (16 KB at dh = 128) and the alignment
+// slack, 41,984 bytes at dh = 64; registers (under 96 a thread) let four
+// blocks share an SM, so one block's softmax runs while another's products
+// do.  Scores are wgmma.m64n64k16 with Q from shared memory as A and the
+// key tile as the K-major B operand.  The
+// softmax is over the whole row and not online, because the weights are
+// rounded to bf16 after their normalisation, as in the TPU kernel: pass 1
+// runs the scores of each key tile for the row max and the sum of exp(s -
+// max) (the running sum rescaled when the max grows, which changes it by
+// fp32 ulps only); pass 2 runs the scores again, forms exp(s - max) * (1 /
+// sum) in fp32, rounds it to bf16, and runs PV as wgmma.m64nDHk16 with P
+// from registers (the score accumulator's layout, packed to bf16, is the A
+// fragment) and V's tile as B through the transpose bit.  Flash
+// attention's single pass, with unnormalised bf16 weights and one division
+// at the end, rounds the weights at another point: a different result, so
+// it was not taken.  The scale is applied in the exp: exp(scale * (acc -
+// max)) is ex2.approx of one FMA with scale * log2(e) folded in (within
+// ~1e-6 relative of expf, far below the bf16 rounding of the weights), the
+// sum divided once a row and the weights multiplied by its reciprocal.  The
+// last key tile's softmax and PV take only the 16, 32 or 64 keys that
+// cover what is left (L = 577, 257 and 197 end one to five keys past a
+// multiple of 64); its score product stays 64 keys wide, as a second wgmma
+// shape in the kernel made ptxas serialize every wgmma.  Only the key
+// tiles that reach past length or (causal) past the tile's first row are
+// masked; causal key tiles wholly above the tile's last row are neither
+// loaded nor computed.  The output is staged in the Q tile, in its swizzled
+// layout, and written in 16-byte pieces.  Registers: chip_smoke.py's build
+// phase reports ptxas's count for each instantiation (PERF.md).
 //
 // fp32 design (exact, on the CUDA cores: tensor cores would round its
 // operands to TF32).  Bound by operations: at L=197, dh=64 a (batch, head)
@@ -80,77 +89,36 @@
 // L*dh, dh).  K4 is not padded: the TPU wrapper pads L to 8 for the
 // sublanes only, and this kernel masks by length.  The wrapper admits
 // strides and dh that are multiples of 8 elements and 16-byte aligned
-// bases, so every row is whole 16-byte pieces.
+// bases, so every row is whole 16-byte pieces (TMA's stride rule too).
 //
 // Two more modes serve the block-variant bench (scripts/bench_block_variants.py,
 // make_kernel :60 and bench_micro :610-685), whose bf16 variants scale q in
 // the activation dtype:
 //   ATT_Q_ROUND     q is T(q * T(scale)), rounded to the activation dtype
 //                   before the fp32 score dot (`qkv[...] * scale` on a bf16
-//                   slice, :212, :657, :850: the Python scale is cast to bf16)
+//                   slice, :212, :657, :850: the Python scale is cast to bf16);
+//                   in bf16 the Q tile is scaled in shared memory
 //   ATT_NO_SOFTMAX  as ATT_Q_ROUND, then weights T(s * 0.005) over all L keys
 //                   with no mask and no softmax (attn_nosm, :664-665); it
-//                   ignores length and causal.
+//                   ignores length and causal, and runs pass 2 only.
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 constexpr int ATT_MAX_DH = 128;
 enum { ATT_SOFTMAX = 0, ATT_Q_ROUND = 1, ATT_NO_SOFTMAX = 2 };
 
-// -- bf16: mma.sync tensor-core kernel ----------------------------------------
-
-constexpr int MMA_MAX_WARPS = 8;  // 128 query rows a block
-constexpr int KEY_CHUNK = 64;     // keys per score chunk: 8 n8 tiles, 32 fp32 a thread
-
-// Query tiles and warps a block for L: ceil(L/128) tiles of equal size.
-__host__ __device__ inline int mma_tiles(int L) {
-  return (L + 16 * MMA_MAX_WARPS - 1) / (16 * MMA_MAX_WARPS);
-}
-__host__ __device__ inline int mma_warps(int L) {
-  const int rows = (L + mma_tiles(L) - 1) / mma_tiles(L);
-  return (rows + 15) / 16;
-}
 inline int padded_dh(int dh) { return dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
-
-size_t mma_smem_bytes(int L, int dh) {
-  const size_t rows = 16 * (size_t)mma_warps(L) + 2 * (((size_t)L + 15) & ~(size_t)15);
-  return rows * (padded_dh(dh) + 8) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a . b, m16n8k16, bf16 inputs, fp32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -165,272 +133,462 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t v, float scale_t) {
   return pack_bf16(__fmul_rn(__low2float(p), scale_t), __fmul_rn(__high2float(p), scale_t));
 }
 
-// s[j] (j < 2*n16) = Q rows . K rows kb + 8j .. kb + 8j + 7
-template <int DHP>
-__device__ __forceinline__ void chunk_scores(float (&s)[KEY_CHUNK / 8][4],
-                                             const uint32_t (&qa)[DHP / 16][4], const bf16* Ks,
-                                             int kb, int n16, int lane) {
-  constexpr int SR = DHP + 8;
-  const int key_off = (lane & 7) + ((lane >> 4) << 3);
-  const int d_off = ((lane >> 3) & 1) << 3;
-#pragma unroll
-  for (int t = 0; t < KEY_CHUNK / 16; ++t) {
-    if (t < n16) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[2 * t][e] = s[2 * t + 1][e] = 0.f;
-      const bf16* kp = Ks + (kb + 16 * t + key_off) * SR + d_off;
-#pragma unroll
-      for (int kk = 0; kk < DHP / 16; ++kk) {
-        uint32_t b[4];
-        ldsm_x4(b, kp + kk * 16);
-        mma_bf16(s[2 * t], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * t + 1], qa[kk], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// -1e30 for the masked keys of the 16-key tile t of a chunk (s[2t],
-// s[2t+1]): col >= kend, and col > row when causal.  `col` is the thread's
-// first column of the tile, `row` its first row (the other is row + 8).
-__device__ __forceinline__ void mask_tile(float (&s)[KEY_CHUNK / 8][4], int t, int col, int row,
-                                          int kend, int causal) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = col + 8 * h + (e & 1), r = row + (e < 2 ? 0 : 8);
-      if (c >= kend || (causal && c > r)) s[2 * t + h][e] = -1e30f;
-    }
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-template <int DHP, int MODE>
-__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
-attention_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, long long sb, long long sh, long long sr,
-                   bf16* __restrict__ out, long long osb, long long osh, long long osr, int L,
-                   int dh, int length, int causal, float scale) {
-  constexpr int SR = DHP + 8;  // smem row stride (elements): 16 bytes of padding
-  constexpr int NT = KEY_CHUNK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nwarps = blockDim.x >> 5, qrows = 16 * nwarps;
-  const int kend = MODE == ATT_NO_SOFTMAX ? L : min(L, length);
-  const int kend16 = (kend + 15) & ~15;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + qrows * SR;
-  bf16* Vs = Ks + kend16 * SR;
+// -- bf16: wgmma fed by a TMA ring ---------------------------------------------
 
-  const long long base = blockIdx.z * sb + blockIdx.y * sh;  // this (batch, head)
-  const long long obase = blockIdx.z * osb + blockIdx.y * osh;
-  const int q0 = blockIdx.x * qrows;
-  const int pieces = dh >> 3;  // 16-byte pieces a row
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+constexpr int TILE = 64;               // query rows a block; keys a ring tile
+constexpr int RING = 4;                // ring stages
+constexpr int BOX_BYTES = TILE * 128;  // a 64-row x 64-column box: 8 KB
+constexpr int THREADS = 128 + 32;      // the consumer warpgroup and the producer warp
 
-  for (int idx = threadIdx.x; idx < qrows * pieces; idx += blockDim.x) {
-    const int r = idx / pieces, c = (idx - r * pieces) << 3;
-    bf16* dst = Qs + r * SR + c;
-    if (q0 + r < L)
-      cp_async16(dst, q + base + (q0 + r) * sr + c);
-    else
-      *reinterpret_cast<uint4*>(dst) = zero;
+inline int wgmma_dh(int dh) { return dh <= 64 ? 64 : 128; }
+
+// The Q tile and the ring, + slack to align to 1024 (the swizzle pattern
+// repeats every 1024 bytes: tiles start on it)
+size_t wgmma_smem_bytes(int dh) {
+  return (size_t)(1 + RING) * (wgmma_dh(dh) / 64) * BOX_BYTES + 1024;
+}
+
+// d (+)= Q (64x16) . K^T (64 keys), both K-major: K's rows as stored, no transpose
+__device__ __forceinline__ void wgmma_scores(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += P (64x16, bf16 registers) . V (16x64, N-major: transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += P (64x16, bf16 registers) . V (16x128, N-major: transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DHP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DHP / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DHP == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// The ring of K and V tiles.  The block's i-th tile lies in stage i %
+// RING; `full` counts its bytes, `empty` the consumer threads done with it.
+// Pass 1 reads K's tiles 0 .. nk - 1 and pass 2 K's and V's in turn.
+struct Ring {
+  uint32_t base;
+  uint64_t* full;
+  uint64_t* empty;
+  int tile_bytes;
+  __device__ __forceinline__ uint32_t acquire(int i) const {
+    mbar_wait(smem_u32(&full[i % RING]), (i / RING) & 1);
+    return base + (i % RING) * tile_bytes;
   }
-  for (int idx = threadIdx.x; idx < kend16 * pieces; idx += blockDim.x) {
-    const int j = idx / pieces, c = (idx - j * pieces) << 3;
-    bf16* dst = Ks + j * SR + c;
-    if (j < kend)
-      cp_async16(dst, k + base + j * sr + c);
-    else
-      *reinterpret_cast<uint4*>(dst) = zero;
+  __device__ __forceinline__ void release(int i) const {
+    mbar_arrive(smem_u32(&empty[i % RING]));
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int idx = threadIdx.x; idx < kend16 * pieces; idx += blockDim.x) {
-    const int j = idx / pieces, c = (idx - j * pieces) << 3;
-    bf16* dst = Vs + j * SR + c;
-    if (j < kend)
-      cp_async16(dst, v + base + j * sr + c);
-    else
-      *reinterpret_cast<uint4*>(dst) = zero;
+};
+
+// s = Q . K^T over a whole 64-key tile, in K steps of 16 columns: the
+// 64-column boxes lie BOX_BYTES apart, and a step advances 32 bytes inside
+// a box's 128-byte swizzled rows (descriptor SBO 1024: eight rows).
+// Columns past dh are zero (TMA's fill).  Every score product has this one
+// shape: a narrower last tile (m64n16, m64n32) in the same kernel made
+// ptxas serialize all of its wgmma, which cost more than the keys it saved.
+template <int DHP>
+__device__ __forceinline__ void tile_scores(float (&s)[32], uint32_t qt, uint32_t kt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DHP / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * BOX_BYTES + (kk & 3) * 32;
+    wgmma_scores(s, smem_desc(qt + off, 16, 1024), smem_desc(kt + off, 16, 1024), kk > 0);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  if (dh < DHP) {  // zero the columns dh..DHP of every Q, K and V row
-    const int padp = (DHP - dh) >> 3;
-    for (int idx = threadIdx.x; idx < (qrows + 2 * kend16) * padp; idx += blockDim.x) {
-      const int r = idx / padp, c = dh + ((idx - r * padp) << 3);
-      *reinterpret_cast<uint4*>(Qs + r * SR + c) = zero;
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// What a consumer thread needs of a key tile besides the ring.
+struct TileArgs {
+  uint32_t qt;  // the Q tile
+  int col;      // the thread's first key of the tile
+  int row0;     // the thread's rows: row0, row0 + 8
+  int kend;
+  bool causal;
+  bool edge;    // does the tile need the mask?
+  float coef;   // exp(scale * x) = 2^(x * coef)
+};
+
+// -1e30 for the tile's first N keys that lie at or past kend or, when
+// causal, above the thread's rows (the accumulator layout: s[4j + e] is row
+// row0 + 8 (e / 2), key col + 8j + e % 2).
+template <int N>
+__device__ __forceinline__ void mask_scores(float (&s)[32], const TileArgs& t) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = t.col + 8 * j + (e & 1), r = t.row0 + (e < 2 ? 0 : 8);
+      if (c >= t.kend || (t.causal && c > r)) s[4 * j + e] = -1e30f;
     }
+}
+
+// Pass 1 on one key tile, whose first N keys (16, 32 or 64) hold all it
+// attends: the scores, then the row max and the running sum of exp(s -
+// max) over those keys, each row's max shared by the four threads that
+// hold it.
+template <int N, int DHP>
+__device__ __forceinline__ void stats_step(const Ring& ring, int ki, const TileArgs& t,
+                                           float (&m)[2], float (&l)[2]) {
+  float s[32];
+  tile_scores<DHP>(s, t.qt, ring.acquire(ki));
+  ring.release(ki);
+  if (t.edge) mask_scores<N>(s, t);
+  float c[2] = {-1e30f, -1e30f};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    c[0] = fmaxf(c[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    c[1] = fmaxf(c[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // Q and K
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int w0 = q0 + 16 * warp;  // the warp's first row
-  const bool active = w0 < L;
-  const int row0 = w0 + g;
-  // keys this warp can attend: the causal diagonal bounds them by its last row
-  const int kend_w = (causal && MODE != ATT_NO_SOFTMAX) ? min(kend, min(L, w0 + 16)) : kend;
-  const int kend16_w = (kend_w + 15) & ~15;
-
-  uint32_t qa[DHP / 16][4];
-  float m0 = -1e30f, m1 = -1e30f, l0 = 0.f, l1 = 0.f;
-  float s[NT][4];
-  // exp(scale * (acc - max)) = 2^(acc * coef - max * coef): the scale (the
-  // softmax mode; the others scaled q) and log2(e) folded into one FMA
-  const float coef = (MODE == ATT_SOFTMAX ? scale : 1.f) * 1.4426950408889634f;
-  // Does the 16-key tile at `key` need the mask: does it reach past kend,
-  // or (causal) past the warp's first row?
-  auto edge = [&](int key) { return key + 16 > kend || (causal && key + 15 > w0); };
-
-  if (active) {
-    const bf16* qp = Qs + (16 * warp + (lane & 15)) * SR + ((lane >> 4) << 3);
+  float nm[2];
 #pragma unroll
-    for (int kk = 0; kk < DHP / 16; ++kk) {
-      ldsm_x4(qa[kk], qp + kk * 16);
-      if (MODE != ATT_SOFTMAX) {
-        const float scale_t = pck::round_to<bf16>(scale);
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) qa[kk][e] = scale_pair(qa[kk][e], scale_t);
-      }
-    }
-    if (MODE != ATT_NO_SOFTMAX) {
-      // pass 1: the row max, and the sum of exp(s - max)
-      for (int kb = 0; kb < kend16_w; kb += KEY_CHUNK) {
-        const int n16 = min(KEY_CHUNK, kend16_w - kb) >> 4;
-        chunk_scores<DHP>(s, qa, Ks, kb, n16, lane);
-        float c0 = -1e30f, c1 = -1e30f;
-#pragma unroll
-        for (int t = 0; t < KEY_CHUNK / 16; ++t) {
-          if (t < n16) {
-            if (edge(kb + 16 * t)) mask_tile(s, t, kb + 16 * t + 2 * tig, row0, kend, causal);
-#pragma unroll
-            for (int j = 2 * t; j < 2 * t + 2; ++j) {
-              c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
-              c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
-            }
-          }
-        }
-#pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, o));
-          c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, o));
-        }
-        const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
-        l0 *= ex2((m0 - n0) * coef);
-        l1 *= ex2((m1 - n1) * coef);
-        m0 = n0;
-        m1 = n1;
-        const float nm0 = -m0 * coef, nm1 = -m1 * coef;
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          if (j < 2 * n16) {
-            l0 += ex2(fmaf(s[j][0], coef, nm0)) + ex2(fmaf(s[j][1], coef, nm0));
-            l1 += ex2(fmaf(s[j][2], coef, nm1)) + ex2(fmaf(s[j][3], coef, nm1));
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-      }
-    }
+    for (int o = 1; o < 4; o <<= 1) c[h] = fmaxf(c[h], __shfl_xor_sync(0xffffffffu, c[h], o));
+    const float n = fmaxf(m[h], c[h]);
+    l[h] *= ex2((m[h] - n) * t.coef);
+    m[h] = n;
+    nm[h] = -n * t.coef;
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // V
-  __syncthreads();
-  if (!active) return;
-
-  // pass 2: normalised weights rounded to bf16, then PV
-  float o[DHP / 8][4];
 #pragma unroll
-  for (int j = 0; j < DHP / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  const float nm0 = -m0 * coef, nm1 = -m1 * coef, r0 = 1.f / l0, r1 = 1.f / l1;
-  const int vkey_off = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int vd_off = (lane >> 4) << 3;
-  for (int kb = 0; kb < kend16_w; kb += KEY_CHUNK) {
-    const int n16 = min(KEY_CHUNK, kend16_w - kb) >> 4;
-    chunk_scores<DHP>(s, qa, Ks, kb, n16, lane);
-#pragma unroll
-    for (int t = 0; t < KEY_CHUNK / 16; ++t) {
-      if (t < n16) {
-        // no_softmax needs no mask: keys from L on are zero rows, so s = 0
-        if (MODE != ATT_NO_SOFTMAX && edge(kb + 16 * t))
-          mask_tile(s, t, kb + 16 * t + 2 * tig, row0, kend, causal);
-        uint32_t a[4];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float* sj = s[2 * t + h];
-          if (MODE == ATT_NO_SOFTMAX) {
-            a[2 * h] = pack_bf16(__fmul_rn(sj[0], 0.005f), __fmul_rn(sj[1], 0.005f));
-            a[2 * h + 1] = pack_bf16(__fmul_rn(sj[2], 0.005f), __fmul_rn(sj[3], 0.005f));
-          } else {
-            a[2 * h] = pack_bf16(ex2(fmaf(sj[0], coef, nm0)) * r0, ex2(fmaf(sj[1], coef, nm0)) * r0);
-            a[2 * h + 1] =
-                pack_bf16(ex2(fmaf(sj[2], coef, nm1)) * r1, ex2(fmaf(sj[3], coef, nm1)) * r1);
-          }
-        }
-        const bf16* vp = Vs + (kb + 16 * t + vkey_off) * SR + vd_off;
-#pragma unroll
-        for (int dn = 0; dn < DHP / 16; ++dn) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, vp + dn * 16);
-          mma_bf16(o[2 * dn], a, b[0], b[1]);
-          mma_bf16(o[2 * dn + 1], a, b[2], b[3]);
-        }
-      }
-    }
-  }
-
-  // stage the warp's 16 output rows in its own Q rows, then 16-byte stores
-  bf16* os = Qs + 16 * warp * SR;
-#pragma unroll
-  for (int j = 0; j < DHP / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(os + g * SR + 8 * j + 2 * tig) = pack_bf16(o[j][0], o[j][1]);
-    *reinterpret_cast<uint32_t*>(os + (g + 8) * SR + 8 * j + 2 * tig) =
-        pack_bf16(o[j][2], o[j][3]);
-  }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * pieces; idx += 32) {
-    const int r = idx / pieces, c = (idx - r * pieces) << 3;
-    if (w0 + r < L)
-      *reinterpret_cast<uint4*>(out + obase + (w0 + r) * osr + c) =
-          *reinterpret_cast<const uint4*>(os + r * SR + c);
+  for (int j = 0; j < N / 8; ++j) {
+    l[0] += ex2(fmaf(s[4 * j], t.coef, nm[0])) + ex2(fmaf(s[4 * j + 1], t.coef, nm[0]));
+    l[1] += ex2(fmaf(s[4 * j + 2], t.coef, nm[1])) + ex2(fmaf(s[4 * j + 3], t.coef, nm[1]));
   }
 }
 
+// Pass 2 on one key tile: the scores again, the weights of its first N keys
+// exp(s - max) * (1 / sum) in fp32 rounded to bf16 (no_softmax: T(s *
+// 0.005)), packed straight from the accumulator layout into the A
+// fragments of N / 16 steps of 16 keys, then o += P . V over those steps
+// with V's tile read through the transpose bit (descriptor LBO BOX_BYTES
+// between 64-column boxes, SBO 1024 between eight key rows; a step
+// advances 16 rows of 128 bytes).  K's tile is ring tile ki, V's ki + 1.
+template <int N, int DHP, int MODE>
+__device__ __forceinline__ void pv_step(const Ring& ring, int ki, const TileArgs& t,
+                                        float (&o)[DHP / 2], const float (&nm)[2],
+                                        const float (&rl)[2]) {
+  float s[32];
+  tile_scores<DHP>(s, t.qt, ring.acquire(ki));
+  ring.release(ki);
+  if (MODE != ATT_NO_SOFTMAX && t.edge) mask_scores<N>(s, t);
+  uint32_t a[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* x = s + 8 * kk + 4 * h;
+      if (MODE == ATT_NO_SOFTMAX) {
+        a[kk][2 * h] = pack_bf16(__fmul_rn(x[0], 0.005f), __fmul_rn(x[1], 0.005f));
+        a[kk][2 * h + 1] = pack_bf16(__fmul_rn(x[2], 0.005f), __fmul_rn(x[3], 0.005f));
+      } else {
+        a[kk][2 * h] = pack_bf16(ex2(fmaf(x[0], t.coef, nm[0])) * rl[0],
+                                 ex2(fmaf(x[1], t.coef, nm[0])) * rl[0]);
+        a[kk][2 * h + 1] = pack_bf16(ex2(fmaf(x[2], t.coef, nm[1])) * rl[1],
+                                     ex2(fmaf(x[3], t.coef, nm[1])) * rl[1]);
+      }
+    }
+  const uint32_t vt = ring.acquire(ki + 1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    wgmma_rs<DHP>(o, a[kk], smem_desc(vt + kk * 16 * 128, BOX_BYTES, 1024));
+  wgmma_commit();
+  wgmma_wait<0>();
+  ring.release(ki + 1);
+}
+
+// The keys of a tile with `keys` keys left that the softmax and P . V take:
+// 16, 32 or 64.
+__device__ __forceinline__ int tile_width(int keys) { return keys > 32 ? 64 : keys > 16 ? 32 : 16; }
+
 template <int DHP, int MODE>
-int launch_mma(const void* q, const void* k, const void* v, const long long* st, void* out,
-               const long long* ost, int B, int L, int H, int dh, int length, int causal,
-               float scale, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(L, dh);
-  cudaError_t err = cudaFuncSetAttribute(attention_bf16_mma<DHP, MODE>,
+__global__ void __launch_bounds__(THREADS, DHP == 64 ? 3 : 2)
+attention_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
+                     long long osb, long long osh, long long osr, int L, int dh, int length,
+                     int causal, int rows_first, float scale) {
+  constexpr int TB = DHP / 64 * BOX_BYTES;  // the Q tile or a ring stage
+  constexpr bool NO_SM = MODE == ATT_NO_SOFTMAX;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[RING], empty[RING], q_full;
+  const uint32_t qt = (smem_u32(smem_raw) + 1023) & ~1023u;  // the Q tile, then the ring
+  unsigned char* qtile = smem_raw + (qt - smem_u32(smem_raw));
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TILE;  // the block's first row
+  const bool causal_on = causal && !NO_SM;
+  const int kend = NO_SM ? L : min(L, length);
+  // keys the block attends (the causal diagonal bounds them by its last
+  // row), in nk tiles, the last n_last keys wide
+  const int kend_b = causal_on ? min(kend, q0 + TILE) : kend;
+  const int nk = (kend_b + TILE - 1) / TILE;
+  const int n_last = tile_width(kend_b - TILE * (nk - 1));
+  const int pass2 = NO_SM ? 0 : nk;  // the ring index of pass 2's first tile
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), 128);
+    }
+    mbar_init(smem_u32(&q_full), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const Ring ring{qt + TB, full, empty, TB};
+  if (threadIdx.x >= 128) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == 128) {
+      // rows `row` .. row + 63 of this (batch, head), every 64-column box
+      auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int row) {
+#pragma unroll
+        for (int bx = 0; bx < DHP / 64; ++bx)
+          tma_load_4d(dst + bx * BOX_BYTES, map, bar, 64 * bx, rows_first ? row : h,
+                      rows_first ? h : row, b);
+      };
+      mbar_arrive_expect_tx(smem_u32(&q_full), TB);
+      load(qt, &tm_q, smem_u32(&q_full), q0);
+      // ring index i: K's or V's tile j
+      auto stage = [&](int i, const CUtensorMap* map, int j) {
+        const int s = i % RING;
+        mbar_wait(smem_u32(&empty[s]), ((i / RING) & 1) ^ 1);
+        mbar_arrive_expect_tx(smem_u32(&full[s]), TB);
+        load(ring.base + s * TB, map, smem_u32(&full[s]), TILE * j);
+      };
+      for (int i = 0; i < pass2; ++i) stage(i, &tm_k, i);
+      for (int j = 0; j < nk; ++j) {
+        stage(pass2 + 2 * j, &tm_k, j);
+        stage(pass2 + 2 * j + 1, &tm_v, j);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  TileArgs t{qt, 0, q0 + 16 * warp + (lane >> 2), kend, causal_on, false,
+             (MODE == ATT_SOFTMAX ? scale : 1.f) * 1.4426950408889634f};
+  // key tile j: its width, and does it reach past kend or, when causal,
+  // past the block's first row?
+  auto at_tile = [&](int j) {
+    const int kb = TILE * j, n = j + 1 < nk ? TILE : n_last;
+    t.col = kb + 2 * (lane & 3);
+    t.edge = kb + n > kend || (causal_on && kb + n - 1 > q0);
+    return n;
+  };
+
+  mbar_wait(smem_u32(&q_full), 0);
+  if (MODE != ATT_SOFTMAX) {  // Q scaled and rounded in place
+    const float scale_t = pck::round_to<bf16>(scale);
+    for (int i = threadIdx.x; i < TB / 16; i += 128) {
+      uint4* p = reinterpret_cast<uint4*>(qtile + 16 * i);
+      uint4 x = *p;
+      x.x = scale_pair(x.x, scale_t);
+      x.y = scale_pair(x.y, scale_t);
+      x.z = scale_pair(x.z, scale_t);
+      x.w = scale_pair(x.w, scale_t);
+      *p = x;
+    }
+    fence_proxy_async();
+    consumers_sync<128>();
+  }
+
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  if (!NO_SM) {  // pass 1: the row max and the sum of exp(s - max)
+    for (int j = 0; j < nk; ++j) {
+      const int n = at_tile(j);
+      if (n == 64)
+        stats_step<64, DHP>(ring, j, t, m, l);
+      else if (n == 32)
+        stats_step<32, DHP>(ring, j, t, m, l);
+      else
+        stats_step<16, DHP>(ring, j, t, m, l);
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) l[h2] += __shfl_xor_sync(0xffffffffu, l[h2], o);
+  }
+
+  // pass 2: the scores again, the weights, P . V
+  const float nm[2] = {-m[0] * t.coef, -m[1] * t.coef}, rl[2] = {1.f / l[0], 1.f / l[1]};
+  float o[DHP / 2];
+#pragma unroll
+  for (int i = 0; i < DHP / 2; ++i) o[i] = 0.f;
+  for (int j = 0; j < nk; ++j) {
+    const int ki = pass2 + 2 * j;  // the ring index of K's tile j
+    const int n = at_tile(j);
+    if (n == 64)
+      pv_step<64, DHP, MODE>(ring, ki, t, o, nm, rl);
+    else if (n == 32)
+      pv_step<32, DHP, MODE>(ring, ki, t, o, nm, rl);
+    else
+      pv_step<16, DHP, MODE>(ring, ki, t, o, nm, rl);
+  }
+
+  // The output in the Q tile, in its swizzled layout (16-byte piece p of
+  // row r at p ^ (r % 8)), then 16-byte stores of whole rows.
+  consumers_sync<128>();  // every warp's products, which read Q, are done
+#pragma unroll
+  for (int j = 0; j < DHP / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 16 * warp + (lane >> 2) + 8 * hh;
+      const int byte = (j >> 3) * BOX_BYTES + r * 128 + (((j & 7) ^ (r & 7)) << 4) + 4 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(qtile + byte) =
+          pack_bf16(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
+    }
+  consumers_sync<128>();
+  const long long obase = b * osb + h * osh;
+  for (int i = threadIdx.x; i < TILE * (DHP / 8); i += 128) {
+    const int r = i / (DHP / 8), p = i % (DHP / 8);
+    if (q0 + r < L && 8 * p < dh)
+      *reinterpret_cast<uint4*>(out + obase + (long long)(q0 + r) * osr + 8 * p) =
+          *reinterpret_cast<const uint4*>(qtile + (p >> 3) * BOX_BYTES + r * 128 +
+                                          (((p & 7) ^ (r & 7)) << 4));
+  }
+}
+
+// A 4-D tensor map over one of q, k, v: (dh, rows, heads, batch), with rows
+// and heads in the order of their strides (`rows_first` when the row stride
+// is the smaller), read in boxes of 64 columns x 64 rows of one (batch,
+// head) with the 128-byte swizzle.  Reads past dh and past L are zero-filled.
+bool head_map(CUtensorMap* map, const void* ptr, const long long* st, int B, int L, int H,
+              int dh, bool rows_first) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)(rows_first ? L : H),
+                              (cuuint64_t)(rows_first ? H : L), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2 * (cuuint64_t)(rows_first ? st[2] : st[1]),
+                                 2 * (cuuint64_t)(rows_first ? st[1] : st[2]),
+                                 2 * (cuuint64_t)st[0]};
+  const cuuint32_t box[4] = {64, rows_first ? 64u : 1u, rows_first ? 1u : 64u, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DHP, int MODE>
+int launch_wgmma(const void* q, const void* k, const void* v, const long long* st, void* out,
+                 const long long* ost, int B, int L, int H, int dh, int length, int causal,
+                 float scale, cudaStream_t stream) {
+  const bool rows_first = st[2] <= st[1];
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!head_map(&tm_q, q, st, B, L, H, dh, rows_first) ||
+      !head_map(&tm_k, k, st, B, L, H, dh, rows_first) ||
+      !head_map(&tm_v, v, st, B, L, H, dh, rows_first))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wgmma_smem_bytes(dh);
+  cudaError_t err = cudaFuncSetAttribute(attention_bf16_wgmma<DHP, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(mma_tiles(L), H, B);
-  attention_bf16_mma<DHP, MODE><<<grid, 32 * mma_warps(L), smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      st[0], st[1], st[2], static_cast<bf16*>(out), ost[0], ost[1], ost[2], L, dh, length, causal,
-      scale);
+  const dim3 grid((L + TILE - 1) / TILE, H, B);
+  attention_bf16_wgmma<DHP, MODE><<<grid, THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<bf16*>(out), ost[0], ost[1], ost[2], L, dh, length, causal,
+      rows_first, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DHP>
-int launch_mma_mode(int mode, const void* q, const void* k, const void* v, const long long* st,
-                    void* out, const long long* ost, int B, int L, int H, int dh, int length,
-                    int causal, float scale, cudaStream_t s) {
+int launch_wgmma_mode(int mode, const void* q, const void* k, const void* v, const long long* st,
+                      void* out, const long long* ost, int B, int L, int H, int dh, int length,
+                      int causal, float scale, cudaStream_t s) {
   if (mode == ATT_Q_ROUND)
-    return launch_mma<DHP, ATT_Q_ROUND>(q, k, v, st, out, ost, B, L, H, dh, length, causal, scale,
-                                        s);
+    return launch_wgmma<DHP, ATT_Q_ROUND>(q, k, v, st, out, ost, B, L, H, dh, length, causal,
+                                          scale, s);
   if (mode == ATT_NO_SOFTMAX)
-    return launch_mma<DHP, ATT_NO_SOFTMAX>(q, k, v, st, out, ost, B, L, H, dh, length, causal,
-                                           scale, s);
-  return launch_mma<DHP, ATT_SOFTMAX>(q, k, v, st, out, ost, B, L, H, dh, length, causal, scale,
-                                      s);
+    return launch_wgmma<DHP, ATT_NO_SOFTMAX>(q, k, v, st, out, ost, B, L, H, dh, length, causal,
+                                             scale, s);
+  return launch_wgmma<DHP, ATT_SOFTMAX>(q, k, v, st, out, ost, B, L, H, dh, length, causal,
+                                        scale, s);
 }
 
 // -- fp32: exact tiled kernel on the CUDA cores -------------------------------------
@@ -775,15 +933,11 @@ extern "C" int attention_packed(int dtype, const void* q, const void* k, const v
     return (int)cudaErrorInvalidValue;
   const long long st[3] = {sb, sh, sr}, ost[3] = {osb, osh, osr};
   if (dtype == PCK_BF16) {
-    const int dhp = padded_dh(dh);
-    if (dhp == 32)
-      return launch_mma_mode<32>(mode, q, k, v, st, out, ost, B, L, H, dh, length, causal, scale,
-                                 s);
-    if (dhp == 64)
-      return launch_mma_mode<64>(mode, q, k, v, st, out, ost, B, L, H, dh, length, causal, scale,
-                                 s);
-    return launch_mma_mode<128>(mode, q, k, v, st, out, ost, B, L, H, dh, length, causal, scale,
-                                s);
+    if (wgmma_dh(dh) == 64)
+      return launch_wgmma_mode<64>(mode, q, k, v, st, out, ost, B, L, H, dh, length, causal,
+                                   scale, s);
+    return launch_wgmma_mode<128>(mode, q, k, v, st, out, ost, B, L, H, dh, length, causal, scale,
+                                  s);
   }
   if (dtype == PCK_F32) {
     const int dhp = padded_dh(dh);
@@ -797,5 +951,5 @@ extern "C" int attention_packed(int dtype, const void* q, const void* k, const v
 }
 
 extern "C" size_t attention_packed_smem_bytes(int dtype, int L, int dh) {
-  return dtype == PCK_BF16 ? mma_smem_bytes(L, dh) : f32_smem_bytes(L, dh);
+  return dtype == PCK_BF16 ? wgmma_smem_bytes(dh) : f32_smem_bytes(L, dh);
 }

@@ -1,9 +1,10 @@
-// TMA, mbarrier and wgmma helpers shared by the port's two Hopper GEMMs
-// (gemm_bias_epilogue.cu in bf16, gemm_int8_epilogue.cu in s8).  Both run
-// the same ring: one producer warp issues the TMA loads of a stage ring,
-// full barriers count the bytes that landed, empty barriers the consumer
-// threads that are done with a stage, and consumer warpgroups run wgmma on
-// 128-byte-swizzled tiles.
+// TMA, mbarrier and wgmma helpers shared by the port's Hopper kernels: the
+// two GEMMs (gemm_bias_epilogue.cu in bf16, gemm_int8_epilogue.cu in s8)
+// and the bf16 attention (attention_packed.cu).  All run the same ring: one
+// producer warp issues the TMA loads of a stage ring, full barriers count
+// the bytes that landed, empty barriers the consumer threads that are done
+// with a stage, and consumer warpgroups run wgmma on 128-byte-swizzled
+// tiles.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only
@@ -53,6 +54,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(outer)
       : "memory");
+}
+
+// A box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost first.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory writes of this thread become visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.

@@ -163,14 +163,15 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         kernels.attention_packed(*(torch.zeros(1, 4, 256, device=cuda_device),) * 3, 1)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.attention_packed(*(torch.zeros(1, 600, 128, device=cuda_device),) * 3, 1)
-    # bf16 keeps Q's tile and all of K and V in shared memory: at dh=128 it
-    # takes L up to 352
+    # bf16 streams K and V through a ring of fixed size: its shared memory
+    # does not grow with L, so L = 577 and L = 1024 at dh = 128 launch
     lib = kernels._build.load_library()
-    assert lib.attention_packed_smem_bytes(1, 352, 128) <= kernels.SMEM_PER_BLOCK
-    assert lib.attention_packed_smem_bytes(1, 353, 128) > kernels.SMEM_PER_BLOCK
-    with pytest.raises(ValueError, match="shared memory"):
-        kernels.attention_packed(
-            *(torch.zeros(1, 353, 128, device=cuda_device, dtype=torch.bfloat16),) * 3, 1)
+    assert lib.attention_packed_smem_bytes(1, 1024, 128) == lib.attention_packed_smem_bytes(
+        1, 64, 128) <= kernels.SMEM_PER_BLOCK
+    for L in (577, 1024):
+        x = torch.randn(1, L, 128, device=cuda_device).to(torch.bfloat16)
+        _assert_close(kernels.attention_packed(x, x, x, 1),
+                      kernels.fused_attention_packed_plain(x, x, x, 1), torch.bfloat16)
     # 16-byte pieces: K, N, dh and strides in multiples of 8, aligned bases
     def zb(*shape):
         return torch.zeros(*shape, device=cuda_device, dtype=torch.bfloat16)
@@ -351,16 +352,19 @@ def _packed_and_heads(qkv, h):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh", [32, 64, 128])
-@pytest.mark.parametrize("L,causal", [(1, False), (16, False), (17, False), (77, True),
-                                      (197, False), (257, False), (264, False)])
+@pytest.mark.parametrize("L,causal", [(1, False), (16, False), (17, False), (63, False),
+                                      (65, True), (77, True), (129, False), (197, False),
+                                      (257, False), (264, False)])
 def test_cuda_attention_edges_match_plain(cuda_device, L, causal, dh):
     """The attention's edges, in bf16 (tensor cores) and fp32 (the tiled
-    CUDA-core kernel): a single row, one and a bit of a 16-key tile, the
-    text block's causal L, the image lengths and the bench's ViT-L/14 264
-    (fp32: one to five 64-row query tiles and 64-key chunks, L = 257 at
-    dh = 128 included), dh padded to 32/64/128, a length below L, both
-    bench modes, and all three stride layouts (QKV slices, packed K1,
-    head-major K4); each call counted once under its entry and mode."""
+    CUDA-core kernel): a single row, one and a bit of a 16-key tile, one
+    short of and one past a 64-row query tile (bf16: a 16-key last tile),
+    two tiles and a row, the text block's causal L, the image lengths and
+    the bench's ViT-L/14 264 (fp32: one to five 64-row query tiles and
+    64-key chunks, L = 257 at dh = 128 included), dh padded to 32/64/128, a
+    length below L, both bench modes, and all three stride layouts (QKV
+    slices, packed K1, head-major K4); each call counted once under its
+    entry and mode."""
     H = 2
     g = torch.Generator(device=cuda_device).manual_seed(L * 1000 + dh)
     kernels.reset_launch_counts()
@@ -1091,18 +1095,40 @@ def test_cuda_exact_gelu_epilogue_and_sub_ln_match_plain(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_cuda_attention_at_577_tokens_fits_shared_memory(cuda_device):
-    """EVA02-L/14 at 336 px: L = 577, dh = 64.  The bf16 attention holds a
-    head's whole K and V in shared memory: 188,928 bytes of the 232,448 a
-    block may take; against its plain version, with the K2 bars."""
+    """EVA02-L/14 at 336 px: L = 577, dh = 64.  The bf16 attention streams K
+    and V through a ring: an 8 KB Q tile and four 8 KB stages, 41,984 bytes
+    with the alignment slack, whatever L, so four blocks fit an SM.  Against
+    its plain version, with the K2 bars."""
     from protoclip_tpu_torch.ops import _build
 
-    assert _build.load_library().attention_packed_smem_bytes(1, 577, 64) == 188_928
-    assert 188_928 <= kernels.SMEM_PER_BLOCK
+    assert _build.load_library().attention_packed_smem_bytes(1, 577, 64) == 41_984
+    assert 4 * 41_984 <= kernels.SMEM_PER_BLOCK
     g = torch.Generator(device=cuda_device).manual_seed(3)
     qkv = torch.randn(4, 577, 3 * 1024, device=cuda_device, generator=g).to(torch.bfloat16)
     q, k, v = qkv[..., :1024], qkv[..., 1024:2048], qkv[..., 2048:]
     _assert_close(kernels.attention_packed(q, k, v, 16),
                   kernels.fused_attention_packed_plain(q, k, v, 16), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,dh,causal", [(4, 577, 16, 64, False), (4, 257, 16, 64, False),
+                                             (16, 77, 8, 64, True), (2, 577, 8, 128, False),
+                                             (2, 1024, 4, 128, True)])
+def test_cuda_attention_at_backbone_geometries_matches_plain(cuda_device, B, L, H, dh, causal):
+    """The bf16 attention at the backbones' geometries: EVA02's L = 577 (ten
+    64-row query tiles, K and V streamed, a 16-key last tile), ViT-L/14's
+    257, the text tower's causal 77 and dh = 128 at
+    L = 577 and 1024, in its three modes and with a length below L, against
+    its plain version with the K2 bars."""
+    g = torch.Generator(device=cuda_device).manual_seed(L * 100 + dh)
+    qkv = torch.randn(B, L, 3 * H * dh, device=cuda_device, generator=g).to(torch.bfloat16)
+    d = H * dh
+    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+    for length in (L, L - 70):
+        for mode in ("softmax", "q_round", "no_softmax"):
+            _assert_close(kernels.attention_packed(*sl, H, causal, length, mode),
+                          kernels.fused_attention_packed_plain(*sl, H, causal, length, mode),
+                          torch.bfloat16)
 
 
 @pytest.mark.cuda

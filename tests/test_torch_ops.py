@@ -453,8 +453,9 @@ def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
 
     log = "\n".join([
         "ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__7efae599_19_attention_"
-        "packed_cu_b6d57c5318attention_bf16_mmaILi64ELi1EEEvPK13__nv_bfloat16' for 'sm_90a'",
-        "ptxas info    : Function properties for _ZN52_attention_bf16_mma",
+        "packed_cu_b6d57c5320attention_bf16_wgmmaILi64ELi1EEEv14CUtensorMap_stS0_S0_"
+        "P13__nv_bfloat16xxxiiiiiif' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN52_attention_bf16_wgmma",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 128 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_ZN54_GLOBAL__N__659883fd_21_gemm_bias_"
@@ -485,7 +486,7 @@ def test_chip_smoke_reads_ptxas_usage_of_the_tensor_core_kernels():
         "ptxas info    : Used 98 registers, used 2 barriers",
     ])
     assert chip_smoke.ptxas_usage(log) == {
-        "attention_bf16_mma<64,1>": {"registers": 128, "spill_bytes": 0},
+        "attention_bf16_wgmma<64,1>": {"registers": 128, "spill_bytes": 0},
         "gemm_bf16_wgmma<-1>": {"registers": 90, "spill_bytes": 4},
         "gemm_f32_ring<-1>": {"registers": 168, "spill_bytes": 0},
         "attention_f32_tiled<128>": {"registers": 96, "spill_bytes": 0},
