@@ -24,3 +24,19 @@ def ensure_bpe_vocab() -> None:
     caller hasn't configured one and the snapshot is there."""
     if "PROTOCLIP_BPE_PATH" not in os.environ and os.path.exists(_REF_VOCAB):
         os.environ["PROTOCLIP_BPE_PATH"] = _REF_VOCAB
+
+
+SOT_ID, EOT_ID = 49406, 49407
+
+
+def synthetic_tokenize(prompts, context_length=77):
+    """Stands in for the BPE tokenizer, whose vocab file is not in the
+    repository: SOT, one deterministic id per word, EOT."""
+    import numpy as np
+
+    out = np.zeros((len(prompts), context_length), np.int32)
+    for i, prompt in enumerate(prompts):
+        ids = [sum(ord(ch) * 31 ** k for k, ch in enumerate(w)) % 49000 + 1 for w in prompt.split()]
+        row = [SOT_ID] + ids + [EOT_ID]
+        out[i, :len(row)] = row
+    return out

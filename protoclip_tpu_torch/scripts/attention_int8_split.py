@@ -29,31 +29,14 @@ import torch
 
 from protoclip_tpu_torch.ops import _build
 from protoclip_tpu_torch.ops import kernels as K
-from protoclip_tpu_torch.scripts.gemm_int8_split import PEAK_BYTES_PER_S, build, median_ms
+from protoclip_tpu_torch.scripts._card import bound_ms, build, device_ms, median_ms
 
-PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8, the data sheet's rate
 HOOK = "ATTENTION_INT8_AMAX_ONLY"
 RUNS = 12
 GEOMETRIES = {  # name: (batch, padded rows LP, length, D, heads, group)
     "vit_b16": (512, 200, 197, 768, 12, 16),
     "vit_l14": (128, 264, 257, 1024, 16, 16),
 }
-
-
-def events_ms(fn) -> float:
-    """Median CUDA-event time of one call, the host's time to reach the
-    launches included."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(RUNS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[RUNS // 2]
 
 
 def main(argv=None) -> dict:
@@ -68,9 +51,9 @@ def main(argv=None) -> dict:
     print(smi, flush=True)
     builds = {}
     for source in args.source:
-        builds[str(source)] = {"whole": build(source, entry="attention_int8")}
+        builds[str(source)] = {"whole": build(source, "attention_int8")}
         if HOOK in source.read_text():
-            builds[str(source)]["amax"] = build(source, HOOK, "attention_int8")
+            builds[str(source)]["amax"] = build(source, "attention_int8", HOOK)
     g = torch.Generator(device="cuda").manual_seed(0)
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     result = {"nvidia_smi": smi, "runs": {}}
@@ -81,14 +64,12 @@ def main(argv=None) -> dict:
         out = torch.empty(b, lp, d, device=dev, dtype=bf16)
         vamax = torch.empty(b // group, h, device=dev)
         want = K.attention_int8_plain(*sl, h, length, group)
-        bytes_ms = 4 * b * lp * d * 2 / PEAK_BYTES_PER_S * 1e3
-        ops_ms = 4 * b * lp * length * d / PEAK_INT8_OPS * 1e3
+        bound, bound_by, _, _ = bound_ms(4 * b * lp * d * 2, {"int8": 4 * b * lp * length * d})
         for source, libs in builds.items():
             row = {"source": source, "geometry": tag, "batch": b, "padded_rows": lp,
                    "length": length, "D": d, "heads": h, "group": group,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                   "amax_bound_ms": b * lp * d * 2 / PEAK_BYTES_PER_S * 1e3}
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "amax_bound_ms": bound_ms(b * lp * d * 2, 0)[0]}
             for which, lib in libs.items():
                 def run(lib=lib):
                     _build.check(lib.attention_int8(
@@ -96,9 +77,9 @@ def main(argv=None) -> dict:
                         lp * ld, dh, ld, out.data_ptr(), lp * d, dh, d, b, lp, h, dh, length,
                         group, vamax.data_ptr(), dh ** -0.5 / 127.0,
                         torch.cuda.current_stream().cuda_stream), "attention_int8")
-                row[f"{which}_device_ms"] = median_ms(run)
+                row[f"{which}_device_ms"] = device_ms(run, runs=20, warmup=3)
                 if which == "whole":
-                    row["whole_ms"] = events_ms(run)
+                    row["whole_ms"] = median_ms(run, runs=RUNS, warmup=1)
                     run()
                     torch.cuda.synchronize()
                     row["moved"] = int((out != want).sum())

@@ -34,9 +34,8 @@ import torch.nn.functional as F
 
 from protoclip_tpu_torch.ops import _build
 from protoclip_tpu_torch.ops import kernels as K
-from protoclip_tpu_torch.scripts.gemm_int8_split import PEAK_BYTES_PER_S, build, median_ms
+from protoclip_tpu_torch.scripts._card import bound_ms, build, device_ms, k2_work
 
-PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 SHAPES = {  # name: (batch, L, D, heads, causal)
     "image": (256, 197, 768, 12, False),
     "text": (1024, 77, 512, 8, True),
@@ -50,25 +49,6 @@ GEMMS = {  # name: (K as a multiple of D, N as a multiple of D, epilogue)
 }
 
 
-def gemm_work(m: int, k: int, n: int, residual: bool):
-    """(bytes, flops) of one fp32 product with its epilogue: A, W, the bias
-    and the residual read once, the output written once."""
-    return (m * k + k * n + n + m * n * (2 if residual else 1)) * 4, 2 * m * k * n
-
-
-def attention_work(b: int, l: int, d: int, causal: bool):
-    """(bytes, flops) of the fp32 attention: q, k, v read once, the output
-    written once, and the two products over the keys each query attends."""
-    pairs = l * (l + 1) // 2 if causal else l * l
-    return 4 * b * l * d * 4, 4 * b * pairs * d
-
-
-def bound_ms(n_bytes: float, flops: float):
-    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
-
-
 def in_turns(calls: dict, runs: int) -> dict:
     """{build: (mean ms, [forward ms, backward ms])}, the builds timed in
     order and then in reverse."""
@@ -76,8 +56,18 @@ def in_turns(calls: dict, runs: int) -> dict:
     times = {name: [] for name in names}
     for order in (names, names[::-1]):
         for name in order:
-            times[name].append(median_ms(calls[name], runs))
+            times[name].append(device_ms(calls[name], runs, warmup=3))
     return {name: (sum(t) / len(t), t) for name, t in times.items()}
+
+
+def bounds(tag: str) -> dict:
+    """{product or "attention": (least ms, what bounds it)} at ``SHAPES[tag]``:
+    ``k2_work``'s fp32 bytes and flops at the fp32 peaks."""
+    b, l, d, _, causal = SHAPES[tag]
+    work = k2_work(b, l, d, causal, "float32")
+    entries = {**{name: f"gemm_bias_epilogue.{name}" for name in GEMMS},
+               "attention": "attention_packed"}
+    return {name: bound_ms(*work[entry], "float32")[:2] for name, entry in entries.items()}
 
 
 def agreement(out: torch.Tensor, ref: torch.Tensor) -> dict:
@@ -85,7 +75,8 @@ def agreement(out: torch.Tensor, ref: torch.Tensor) -> dict:
             "max_abs_diff": float((out.double() - ref.double()).abs().max())}
 
 
-def gemm_rows(libs, tag, b, l, d, runs, g) -> dict:
+def gemm_rows(libs, tag, runs, g) -> dict:
+    b, l, d, _, _ = SHAPES[tag]
     m, dev, rows = b * l, torch.device("cuda"), {}
     for name, (kf, nf, epi) in GEMMS.items():
         k, n = kf * d, nf * d
@@ -112,10 +103,10 @@ def gemm_rows(libs, tag, b, l, d, runs, g) -> dict:
 
         timed = in_turns({src: call(src) for src in libs}, runs)
         first = next(iter(libs))
-        bnd, by = bound_ms(*gemm_work(m, k, n, res is not None))
+        bnd, by = bounds(tag)[name]
         rows[f"{tag}.{name}"] = {
             "M": m, "K": k, "N": n, "epilogue": epi, "bound_ms": bnd, "bound_by": by,
-            "library_ms": median_ms(library, runs),
+            "library_ms": device_ms(library, runs, warmup=3),
             "builds": {src: {"ms": ms, "passes_ms": t,
                              **agreement(outs[src], outs[first])}
                        for src, (ms, t) in timed.items()}}
@@ -124,7 +115,8 @@ def gemm_rows(libs, tag, b, l, d, runs, g) -> dict:
     return rows
 
 
-def attention_row(libs, b, l, d, h, causal, runs, g) -> dict:
+def attention_row(libs, tag, runs, g) -> dict:
+    b, l, d, h, causal = SHAPES[tag]
     dev, dh = torch.device("cuda"), d // h
     qkv = torch.randn(b, l, 3 * d, device=dev, generator=g)
     sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
@@ -144,12 +136,13 @@ def attention_row(libs, b, l, d, h, causal, runs, g) -> dict:
 
     timed = in_turns({src: call(src) for src in libs}, runs)
     first = next(iter(libs))
-    bnd, by = bound_ms(*attention_work(b, l, d, causal))
+    bnd, by = bounds(tag)["attention"]
     plain = K.fused_attention_packed_plain(*sl, h, causal)
     row = {"B": b, "L": l, "D": d, "heads": h, "causal": causal, "bound_ms": bnd,
            "bound_by": by,
-           "library_ms": median_ms(
-               lambda: F.scaled_dot_product_attention(*map(heads, sl), is_causal=causal), runs),
+           "library_ms": device_ms(
+               lambda: F.scaled_dot_product_attention(*map(heads, sl), is_causal=causal), runs,
+               warmup=3),
            "builds": {src: {"ms": ms, "passes_ms": t, **agreement(outs[src], outs[first]),
                             "max_abs_err_vs_plain": float((outs[src] - plain).abs().max())}
                       for src, (ms, t) in timed.items()}}
@@ -176,15 +169,15 @@ def main(argv=None) -> dict:
     jobs = [(s, "gemm_bias_epilogue") for s in gemm_srcs] + [(s, "attention_packed")
                                                               for s in attn_srcs]
     with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc a source, all at once
-        built = list(pool.map(lambda job: build(job[0], entry=job[1]), jobs))
+        built = list(pool.map(lambda job: build(*job), jobs))
     gemm_libs = {str(s): lib for s, lib in zip(gemm_srcs, built)}
     attn_libs = {str(s): lib for s, lib in zip(attn_srcs, built[len(gemm_srcs):])}
     g = torch.Generator(device="cuda").manual_seed(0)
     result = {"nvidia_smi": smi, "runs": args.runs, "gemm_sources": list(gemm_libs),
               "attention_sources": list(attn_libs), "gemms": {}, "attention": {}}
-    for tag, (b, l, d, h, causal) in SHAPES.items():
-        result["gemms"].update(gemm_rows(gemm_libs, tag, b, l, d, args.runs, g))
-        result["attention"][tag] = attention_row(attn_libs, b, l, d, h, causal, args.runs, g)
+    for tag in SHAPES:
+        result["gemms"].update(gemm_rows(gemm_libs, tag, args.runs, g))
+        result["attention"][tag] = attention_row(attn_libs, tag, args.runs, g)
     print(json.dumps(result), flush=True)
     return result
 

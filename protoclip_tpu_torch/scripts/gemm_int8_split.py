@@ -20,21 +20,17 @@ raises without it.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import subprocess
 from pathlib import Path
-from typing import Optional
 
 import torch
 
 from protoclip_tpu_torch.ops import _build
 from protoclip_tpu_torch.ops import kernels as K
+from protoclip_tpu_torch.scripts._card import bound_ms, build, device_ms
 
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, the data sheet's rate
 RUNS = 20
-SPIN_CYCLES = 20_000_000  # ~10 ms of a spinning kernel at the H100's clock
 SHAPES = {  # block: (M, D, {GEMM with K = D: (N, epilogue)}); proj (K = 4D) is added
     "image": (256 * 197, 768, {"qkv": (2304, "dequant_bias"),
                                "out_proj": (768, "dequant_bias_residual"),
@@ -46,44 +42,6 @@ SHAPES = {  # block: (M, D, {GEMM with K = D: (N, epilogue)}); proj (K = 4D) is 
 }
 
 
-def build(source: Path, define: Optional[str] = None,
-          entry: str = "gemm_int8_epilogue") -> ctypes.CDLL:
-    """``source`` alone, with ``-D<define>`` where given, into a library of
-    its own under ``build/split/``, with ``entry``'s C signature declared."""
-    out_dir = _build.BUILD_DIR.parent / "split"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tag = hashlib.sha256(str(source.resolve()).encode()).hexdigest()[:8]
-    lib = out_dir / f"{source.stem}_{tag}{'_' + define.lower() if define else ''}.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", f"-I{source.parent}",
-           f"-I{_build.CSRC_DIR}", *([f"-D{define}"] if define else []),
-           str(source), "-o", str(lib)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source}:\n{done.stdout}{done.stderr}")
-    dll = ctypes.CDLL(str(lib))
-    fn = getattr(dll, entry)
-    fn.restype, fn.argtypes = _build._SIGNATURES[entry]
-    return dll
-
-
-def median_ms(fn, runs: int = RUNS) -> float:
-    """Median CUDA-event time of one call queued behind a spinning kernel,
-    so the host's launch overhead is hidden: the device's time."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[runs // 2]
-
-
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", type=Path, default=_build.CSRC_DIR / "gemm_int8_epilogue.cu")
@@ -93,7 +51,8 @@ def main(argv=None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    libs = {"whole": build(args.source), "main_loop": build(args.source, "GEMM_MAIN_LOOP_ONLY")}
+    libs = {"whole": build(args.source, "gemm_int8_epilogue"),
+            "main_loop": build(args.source, "gemm_int8_epilogue", "GEMM_MAIN_LOOP_ONLY")}
     g = torch.Generator(device="cuda").manual_seed(0)
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     result = {"source": str(args.source), "nvidia_smi": smi, "gemms": {}}
@@ -117,16 +76,16 @@ def main(argv=None) -> dict:
                         w_s.data_ptr(), bias.data_ptr(), None if res is None else res.data_ptr(),
                         out.data_ptr(), m, n, k, K._INT8_EPILOGUES[epi],
                         torch.cuda.current_stream().cuda_stream), "gemm_int8_epilogue")
-                row[f"{which}_ms"] = median_ms(run)
+                row[f"{which}_ms"] = device_ms(run, RUNS, warmup=3)
             row["epilogue_ms"] = row["whole_ms"] - row["main_loop_ms"]
             run(libs["whole"])
             want = K.gemm_int8_epilogue_plain(a, a_s, w, w_s, bias, epi, bf16, res)
             torch.cuda.synchronize()
             row["bit_exact"] = bool(torch.equal(out, want))
             del want
-            row["epilogue_bytes_bound_ms"] = (m * n * (out_bytes + (2 if res is not None else 0))
-                                              / PEAK_BYTES_PER_S * 1e3)
-            row["int_mm_ms"] = median_ms(lambda: torch._int_mm(a, w.t()))
+            row["epilogue_bytes_bound_ms"] = bound_ms(
+                m * n * (out_bytes + (2 if res is not None else 0)), 0)[0]
+            row["int_mm_ms"] = device_ms(lambda: torch._int_mm(a, w.t()), RUNS, warmup=3)
             result["gemms"][f"{tag}.{name}"] = row
             del a, w, res, out
     print(json.dumps(result), flush=True)

@@ -357,16 +357,18 @@ class MicroBatcher:
                 self._consecutive_failures += 1
                 self._last_error = f"{type(exc).__name__}: {exc}"
         else:
-            for req, boff, n in parts:
-                req.parts.append(np.asarray(out[boff : boff + n]))
-                req.done += n
-                if req.done == len(req.images):
-                    req.event.set()
+            # counted before any reply is released: a stats() read right
+            # after a reply sees the dispatch that answered it
             with self._stats_lock:
                 self._dispatches += 1
                 self._images += fill
                 self._recent_s.append(dispatch_ns / 1e9)
                 self._consecutive_failures = 0
+            for req, boff, n in parts:
+                req.parts.append(np.asarray(out[boff : boff + n]))
+                req.done += n
+                if req.done == len(req.images):
+                    req.event.set()
         finally:
             self._release_capacity(fill + dropped_rows)
 

@@ -1,8 +1,14 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips where CUDA is not available.
-The file imports neither JAX nor the JAX package, so it also runs on a
-machine that has only PyTorch; there, skip the JAX-pinning conftest:
+These are the card's kernel checks: every kernel, mode and entry against
+its plain version, by the rules of ``protoclip_tpu_torch/scripts/_card.py``,
+at the block geometries of the backbones and the bench and at each
+kernel's ragged edges (``chip_smoke.py`` drives the end-to-end paths and
+times each kernel at the main path's batches, holding it there by the same
+rules).  The file imports neither JAX nor the JAX package,
+so it also runs on a machine that has only PyTorch; there, skip the
+JAX-pinning conftest:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
@@ -10,13 +16,12 @@ machine that has only PyTorch; there, skip the JAX-pinning conftest:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from chip_smoke import synthetic_tokenize
 from protoclip_tpu_torch.models.layers import init_block_params
 from protoclip_tpu_torch.ops import kernels
-
-BARS = {torch.bfloat16: 1e-2, torch.float32: 1e-5}  # max|diff| / max|plain|
-MIN_COSINE = 0.9999
+from protoclip_tpu_torch.scripts import _card
+from protoclip_tpu_torch.scripts._env import synthetic_tokenize
 
 
 @pytest.fixture()
@@ -43,109 +48,216 @@ def _block(d, dtype, device, seed=0):
     }
 
 
-def _assert_close(out, ref, dtype):
+def _bars(dtype, table=_card.BARS):
+    """``table``'s (rel, cos) bars for activations in ``dtype``."""
+    return table[str(dtype).removeprefix("torch.")]
+
+
+def _hold(out, ref, rule):
+    """``out`` against its plain version ``ref`` by ``rule`` (a rule of
+    :func:`_card.agreement`: "exact", "ulp", "ln_quant", ..., or bars)."""
     torch.cuda.synchronize()
-    out, ref = out.double().flatten(), ref.double().flatten()
-    assert float((out - ref).abs().max()) / float(ref.abs().max()) < BARS[dtype]
-    assert float(out @ ref / (out.norm() * ref.norm())) > MIN_COSINE
+    got = _card.agreement(out, ref, rule)
+    assert got["ok"], got
+
+
+def _hold_refusing(out, ref, fault, rule="eva"):
+    """:func:`_hold`, and ``fault``, the plain version with a fault planted
+    in it, refused by the same rule."""
+    _hold(out, ref, rule)
+    planted = _card.agreement(fault, ref, rule)
+    assert not planted["ok"], planted
+
+
+def _packed_and_heads(qkv, h):
+    """The three layouts of one set of q, k, v: column slices of a fused
+    (B, L, 3D) buffer, three packed (B, L, D) tensors, and head-major
+    (B, H, L, dh) tensors."""
+    d = qkv.shape[-1] // 3
+    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+    packed = tuple(t.contiguous() for t in sl)
+    b, l, _ = qkv.shape
+    heads = tuple(t.reshape(b, l, h, d // h).transpose(1, 2).contiguous() for t in sl)
+    return sl, packed, heads
+
+
+# (L, D, heads, causal, a length below L) of the blocks every kernel is held
+# at: ViT-B/16, the text tower, ViT-L/14 and ViT-B/32; two small blocks whose
+# L is no multiple of a tile (one causal at dh = 64); the block-variant
+# bench's padded rows at ViT-B/16 and ViT-L/14 and a tiny one, each with its
+# length
+GEOMETRIES = {
+    "vit_b16": (197, 768, 12, False, 192),
+    "text": (77, 512, 8, True, 72),
+    "vit_l14": (257, 1024, 16, False, 252),
+    "vit_b32": (50, 768, 12, False, 45),
+    "small": (50, 128, 2, False, 45),
+    "tiny_causal": (13, 64, 1, True, 8),
+    "bench_vit_b16": (200, 768, 12, False, 197),
+    "bench_vit_l14": (264, 1024, 16, False, 257),
+    "bench_tiny": (16, 64, 2, False, 13),
+}
+CHECK_BATCH = 8
+DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+
+
+def _inputs(geom, dtype, device):
+    """A block's weights and the activations of the geometry: x, the QKV
+    buffer of LN(x) (its column slices, packed and head-major), and
+    ``hid``, an fp32 MLP hidden as fc leaves it."""
+    L, D, H, _, _ = GEOMETRIES[geom]
+    blk = _block(D, dtype, device)
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(CHECK_BATCH, L, D, device=device, generator=g).to(dtype)
+    hid = torch.randn(CHECK_BATCH, L, 4 * D, device=device, generator=g)
+    ln1 = kernels.layernorm_rows_plain(x, blk["ln_1"]["scale"], blk["ln_1"]["bias"])
+    qkv = kernels.gemm_bias_epilogue_plain(ln1, blk["attn"]["wqkv"], blk["attn"]["bqkv"], "bias")
+    return blk, x, ln1, qkv, hid
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("L,D,H,causal", [(197, 768, 12, False), (77, 512, 8, True),
-                                          (50, 128, 2, False), (13, 64, 1, True)])
-def test_cuda_kernels_match_plain(cuda_device, dtype, L, D, H, causal):
-    blk = _block(D, dtype, cuda_device)
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(3, L, D, device=cuda_device, generator=g).to(dtype)
+@DTYPES
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+def test_cuda_kernels_match_plain(cuda_device, geom, dtype):
+    """K2's kernels and entries at the card's bars: LayerNorm, the four
+    GEMMs with their epilogues, the attention on column slices of one QKV
+    buffer with every key and with a length below L, the K1 entry on packed
+    tensors, K4 on head-major ones, and the K2 block whole and pre-padded
+    with ``length``; each call counted once under its entry."""
+    L, D, H, causal, length = GEOMETRIES[geom]
+    bars = _bars(dtype)
+    blk, x, ln1, qkv, hid = _inputs(geom, dtype, cuda_device)
+    at, mlp = blk["attn"], blk["mlp"]
+    hid = hid.to(dtype)
     kernels.reset_launch_counts()
-    _assert_close(kernels.fused_transformer_block(x, blk, H, causal),
-                  kernels.fused_transformer_block_plain(x, blk, H, causal), dtype)
-    _assert_close(kernels.fused_attention_packed(x, x, x, H, causal),
-                  kernels.fused_attention_packed_plain(x, x, x, H, causal), dtype)
-    xp = torch.nn.functional.pad(x, (0, 0, 0, 3))
-    _assert_close(kernels.fused_transformer_block(xp, blk, H, causal, length=L),
-                  kernels.fused_transformer_block_plain(xp, blk, H, causal, length=L), dtype)
+    _hold(kernels.layernorm_rows(x, blk["ln_1"]["scale"], blk["ln_1"]["bias"]), ln1, bars)
+    for a, w, b, epi, res in ((ln1, at["wqkv"], at["bqkv"], "bias", None),
+                              (ln1, at["wo"], at["bo"], "bias_residual", x),
+                              (ln1, mlp["w_fc"], mlp["b_fc"], "bias_gelu", None),
+                              (hid, mlp["w_proj"], mlp["b_proj"], "bias_residual", x)):
+        _hold(kernels.gemm_bias_epilogue(a, w, b, epi, residual=res),
+              kernels.gemm_bias_epilogue_plain(a, w, b, epi, residual=res), bars)
+    sl, packed, heads = _packed_and_heads(qkv, H)
+    for n in (L, length):
+        _hold(kernels.attention_packed(*sl, H, causal, n),
+              kernels.fused_attention_packed_plain(*sl, H, causal, n), bars)
+    _hold(kernels.fused_attention_packed(*packed, H, causal),
+          kernels.fused_attention_packed_plain(*packed, H, causal), bars)
+    _hold(kernels.fused_attention(*heads, causal), kernels.fused_attention_plain(*heads, causal),
+          bars)
+    _hold(kernels.fused_transformer_block(x, blk, H, causal),
+          kernels.fused_transformer_block_plain(x, blk, H, causal), bars)
+    xp = F.pad(x, (0, 0, 0, 3))
+    _hold(kernels.fused_transformer_block(xp, blk, H, causal, length=L),
+          kernels.fused_transformer_block_plain(xp, blk, H, causal, length=L), bars)
     launched = {k: v for k, v in kernels.launch_counts().items() if v}
     assert launched == {
-        "layernorm_rows": 4, "gemm_bias_epilogue": 8, "attention_packed": 3,
-        "fused_transformer_block": 2, "fused_attention_packed": 1,
+        "layernorm_rows": 1 + 4, "gemm_bias_epilogue": 4 + 8, "attention_packed": 2 + 1 + 2,
+        "fused_attention_packed": 1, "fused_attention": 1, "fused_transformer_block": 2,
     }
 
 
-# K3's bars against its plain version: a quantization step is amax/127, and
-# LayerNorm and attention sum in another order than the plain version, so an
-# int8 code on a rounding tie may move one step (K2's fp32 bar does not apply)
-INT8_BARS = {torch.bfloat16: (2e-2, 0.9999), torch.float32: (1e-2, 0.99999)}
-
-
-def _assert_int8_block_close(out, ref, dtype):
-    torch.cuda.synchronize()
-    out, ref = out.double().flatten(), ref.double().flatten()
-    rel_bar, cos_bar = INT8_BARS[dtype]
-    assert float((out - ref).abs().max()) / float(ref.abs().max()) < rel_bar
-    assert float(out @ ref / (out.norm() * ref.norm())) > cos_bar
-
-
-def _assert_ln_quant_close(got, want, bf16_stats=False):
-    """LayerNorm statistics sum in another order: codes equal in >= 99.9%,
-    never more than one step apart, scales within 1e-6 relative.  With
-    ``bf16_stats`` a sum on a rounding tie of the bf16 mean or variance
-    moves its row's scale by up to a bf16 ulp: scales within 1e-6 in >=
-    99.9% of rows and none more than 2^-7 apart."""
-    (q, s), (rq, rs) = got, want
-    step = (q.int() - rq.int()).abs()
-    assert int(step.max()) <= 1 and float((step == 0).float().mean()) >= 0.999
-    rel = (s - rs).abs() / rs
-    if bf16_stats:
-        assert float((rel <= 1e-6).float().mean()) >= 0.999 and float(rel.max()) <= 2.0 ** -7
-    else:
-        assert float(rel.max()) <= 1e-6
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+def test_cuda_int8_kernels_match_plain(cuda_device, geom, dtype):
+    """K3's pieces as its chain feeds them: ``quant_rows`` (mode b) on the
+    attention output and on the fp32 hidden and the four int8 GEMMs with
+    their epilogues, bit-exact; the LayerNorm quantizer (mode a) to its
+    step rule; and the K3 block, whole and pre-padded, at K3's bars."""
+    L, D, H, causal, _ = GEOMETRIES[geom]
+    blk, x, _, qkv, hid = _inputs(geom, dtype, cuda_device)
+    q = kernels.quantize_block(blk)
+    sl, _, _ = _packed_and_heads(qkv, H)
+    attn = kernels.fused_attention_packed_plain(*sl, H, causal)
+    kernels.reset_launch_counts()
+    for t in (attn, hid):
+        _hold(kernels.quant_rows(t), kernels.quant_rows_plain(t), "exact")
+    _hold(kernels.layernorm_quant_rows(x, q["ln1s"], q["ln1b"]),
+          kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"]), "ln_quant")
+    h_q = kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"])
+    a_q, hid_q = kernels.quant_rows_plain(attn), kernels.quant_rows_plain(hid)
+    for (aq, a_s), w, epi, res in ((h_q, "qkv", "dequant_bias", None),
+                                   (a_q, "o", "dequant_bias_residual", x),
+                                   (h_q, "fc", "dequant_bias_gelu", None),
+                                   (hid_q, "proj", "dequant_bias_residual", x)):
+        args = (aq, a_s, q["w" + w], q["s" + w], q["b" + w], epi, dtype)
+        _hold(kernels.gemm_int8_epilogue(*args, residual=res),
+              kernels.gemm_int8_epilogue_plain(*args, residual=res), "exact")
+    bars = _bars(dtype, _card.INT8_BLOCK_BARS)
+    _hold(kernels.fused_transformer_block_int8(x, q, H, causal),
+          kernels.fused_transformer_block_int8_plain(x, q, H, causal), bars)
+    xp = F.pad(x, (0, 0, 0, 3))
+    _hold(kernels.fused_transformer_block_int8(xp, q, H, causal, length=L),
+          kernels.fused_transformer_block_int8_plain(xp, q, H, causal, length=L), bars)
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {
+        "quant_rows": 2 + 4, "layernorm_quant_rows": 1 + 4, "gemm_int8_epilogue": 4 + 8,
+        "attention_packed": 2, "fused_transformer_block_int8": 2,
+    }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("L,D,H,causal", [(197, 768, 12, False), (77, 512, 8, True),
-                                          (50, 128, 2, False), (13, 64, 1, True)])
-def test_cuda_int8_kernels_match_plain(cuda_device, dtype, L, D, H, causal):
-    blk = _block(D, dtype, cuda_device)
+@DTYPES
+@pytest.mark.parametrize("geom", list(GEOMETRIES))
+def test_cuda_bench_modes_and_kernels_match_plain(cuda_device, geom, dtype):
+    """The block-variant bench's modes and its two kernels: the attention's
+    q_round and no_softmax modes with every key and with the length, at the
+    card's bars; ``attention_int8`` with a v scale per 1, 2 and 4 batch
+    elements (bit-exact, or within two steps of v_amax / 127); ``qkv_sum``
+    and every quantizer mode bit-exact; the LayerNorm quantizer's modes and
+    its bf16 statistics to the step rule; the bf16 GEMM's bench epilogues
+    at the card's bars; and the int8 epilogues bit-exact, the bf16
+    QuickGELU within an ulp."""
+    L, D, H, causal, length = GEOMETRIES[geom]
+    bars = _bars(dtype)
+    blk, x, ln1, qkv, hid = _inputs(geom, dtype, cuda_device)
     q = kernels.quantize_block(blk)
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(3, L, D, device=cuda_device, generator=g).to(dtype)
-    hid = torch.randn(3, L, 4 * D, device=cuda_device, generator=g)  # fp32, as fc leaves it
+    sl, _, _ = _packed_and_heads(qkv, H)
+    attn = kernels.fused_attention_packed_plain(*sl, H, causal)
     kernels.reset_launch_counts()
-    # quant_rows (mode b) and the three GEMM epilogues: bit-exact
-    for t in (x, hid):
-        for got, want in zip(kernels.quant_rows(t), kernels.quant_rows_plain(t)):
-            assert torch.equal(got, want)
-    _assert_ln_quant_close(kernels.layernorm_quant_rows(x, q["ln1s"], q["ln1b"]),
-                           kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"]))
-    a_q, a_s = kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"])
-    h_q, h_s = kernels.quant_rows_plain(hid)
-    for args, epi, res in (((a_q, a_s, q["wqkv"], q["sqkv"], q["bqkv"]), "dequant_bias", None),
-                           ((a_q, a_s, q["wo"], q["so"], q["bo"]), "dequant_bias_residual", x),
-                           ((a_q, a_s, q["wfc"], q["sfc"], q["bfc"]), "dequant_bias_gelu", None),
-                           ((h_q, h_s, q["wproj"], q["sproj"], q["bproj"]),
-                            "dequant_bias_residual", x)):
-        got = kernels.gemm_int8_epilogue(*args, epi, dtype, residual=res)
-        assert torch.equal(got, kernels.gemm_int8_epilogue_plain(*args, epi, dtype, residual=res))
-    # K3, whole and pre-padded with length
-    _assert_int8_block_close(kernels.fused_transformer_block_int8(x, q, H, causal),
-                             kernels.fused_transformer_block_int8_plain(x, q, H, causal), dtype)
-    xp = torch.nn.functional.pad(x, (0, 0, 0, 3))
-    _assert_int8_block_close(
-        kernels.fused_transformer_block_int8(xp, q, H, causal, length=L),
-        kernels.fused_transformer_block_int8_plain(xp, q, H, causal, length=L), dtype)
-    # K4 on head-major views
-    qh, kh, vh = (torch.randn(3, H, L, D // H, device=cuda_device, generator=g).to(dtype)
-                  for _ in range(3))
-    _assert_close(kernels.fused_attention(qh, kh, vh, causal),
-                  kernels.fused_attention_plain(qh, kh, vh, causal), dtype)
-    counts = kernels.launch_counts()
-    assert counts["fused_transformer_block_int8"] == 2 and counts["fused_attention"] == 1
-    assert counts["gemm_int8_epilogue"] == 4 + 8 and counts["quant_rows"] == 2 + 4
-    assert counts["layernorm_quant_rows"] == 1 + 4 and counts["attention_packed"] == 2
-    assert counts["fused_transformer_block"] == 0 and counts["gemm_bias_epilogue"] == 0
+    for mode in ("q_round", "no_softmax"):
+        for n in (L, length):
+            _hold(kernels.attention_packed(*sl, H, causal, n, mode),
+                  kernels.fused_attention_packed_plain(*sl, H, causal, n, mode), bars)
+    for group in (1, 2, 4):
+        _hold(kernels.attention_int8(*sl, H, length, group),
+              kernels.attention_int8_plain(*sl, H, length, group), _card.int8_attention_rule(sl[2]))
+    _hold(kernels.qkv_sum(qkv), kernels.qkv_sum_plain(qkv), "exact")
+    for mode in ("recip", "static", "cast"):
+        for t in (attn, hid):
+            _hold(kernels.quant_rows(t, mode), kernels.quant_rows_plain(t, mode), "exact")
+        _hold(kernels.layernorm_quant_rows(x, q["ln1s"], q["ln1b"], mode=mode),
+              kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"], mode=mode), "ln_quant")
+    _hold(kernels.layernorm_quant_rows(x, q["ln1s"], q["ln1b"], bf16_stats=True),
+          kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"], bf16_stats=True),
+          "ln_quant")
+    # the bf16 GEMM sums in another order, so T(acc + b) may differ by an
+    # ulp before QuickGELU: the GEMM's bars; the int8 epilogue below has an
+    # exact accumulator and meets the ulp rule
+    fc = (ln1, blk["mlp"]["w_fc"], blk["mlp"]["b_fc"], "bias_gelu_bf16")
+    _hold(kernels.gemm_bias_epilogue(*fc), kernels.gemm_bias_epilogue_plain(*fc), bars)
+    w_down = (q["wproj"].t().to(dtype) * q["sproj"].to(dtype)).contiguous()
+    down = (hid.to(dtype), w_down, q["bproj"], "bias32_residual", x)
+    _hold(kernels.gemm_bias_epilogue(*down), kernels.gemm_bias_epilogue_plain(*down), bars)
+    h_q = kernels.layernorm_quant_rows_plain(x, q["ln2s"], q["ln2b"])
+    for epi in ("dequant_bias_gelu_bf16", "dequant_bias_f32", "dequant_bias_gelu_round"):
+        args = (*h_q, q["wfc"], q["sfc"], q["bfc"], epi, dtype)
+        _hold(kernels.gemm_int8_epilogue(*args), kernels.gemm_int8_epilogue_plain(*args),
+              "ulp" if epi == "dequant_bias_gelu_bf16" else "exact")
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {
+        "attention_packed": 4, "attention_packed.q_round": 2, "attention_packed.no_softmax": 2,
+        "attention_int8": 3, "qkv_sum": 1,
+        "quant_rows": 6, "quant_rows.recip": 2, "quant_rows.static": 2, "quant_rows.cast": 2,
+        "layernorm_quant_rows": 4, "layernorm_quant_rows.recip": 1,
+        "layernorm_quant_rows.static": 1, "layernorm_quant_rows.cast": 1,
+        "layernorm_quant_rows.bf16_stats": 1,
+        "gemm_bias_epilogue": 2, "gemm_bias_epilogue.bias_gelu_bf16": 1,
+        "gemm_bias_epilogue.bias32_residual": 1,
+        "gemm_int8_epilogue": 3, "gemm_int8_epilogue.dequant_bias_gelu_bf16": 1,
+        "gemm_int8_epilogue.dequant_bias_f32": 1, "gemm_int8_epilogue.dequant_bias_gelu_round": 1,
+    }
 
 
 @pytest.mark.cuda
@@ -170,8 +282,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         1, 64, 128) <= kernels.SMEM_PER_BLOCK
     for L in (577, 1024):
         x = torch.randn(1, L, 128, device=cuda_device).to(torch.bfloat16)
-        _assert_close(kernels.attention_packed(x, x, x, 1),
-                      kernels.fused_attention_packed_plain(x, x, x, 1), torch.bfloat16)
+        _hold(kernels.attention_packed(x, x, x, 1),
+              kernels.fused_attention_packed_plain(x, x, x, 1), _bars(torch.bfloat16))
     # 16-byte pieces: K, N, dh and strides in multiples of 8, aligned bases
     def zb(*shape):
         return torch.zeros(*shape, device=cuda_device, dtype=torch.bfloat16)
@@ -220,99 +332,6 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
                                 torch.zeros(1, 2, 9, 64, device=cuda_device))
 
 
-def _ulp_steps(out, ref):
-    """|out - ref| in ulps of their dtype, counted across zero."""
-    int_t, width = (torch.int16, 16) if out.dtype == torch.bfloat16 else (torch.int32, 32)
-
-    def ordered(t):
-        bits = t.contiguous().view(int_t).long()
-        return torch.where(bits >= 0, bits, -(bits + (1 << (width - 1))))
-
-    return (ordered(out) - ordered(ref)).abs()
-
-
-def _assert_within_an_ulp(out, ref):
-    """QuickGELU op by op: expf on the card and PyTorch's exp may differ by
-    an fp32 ulp before rounding: >= 99.9% equal, none more than one ulp."""
-    torch.cuda.synchronize()
-    steps = _ulp_steps(out, ref)
-    assert int(steps.max()) <= 1 and float((steps == 0).float().mean()) >= 0.999
-
-
-def _assert_int8_attention_close(got, want, v):
-    """``attention_int8`` against its plain version: bit-exact, or, where
-    the softmax sums in another order move a weight code a step on a
-    rounding tie, no output more than two steps of v_amax / 127 off and a
-    cosine above MIN_COSINE."""
-    torch.cuda.synchronize()
-    if torch.equal(got, want):
-        return
-    step = float(v.abs().max()) / 127
-    got, want = got.double().flatten(), want.double().flatten()
-    assert float((got - want).abs().max()) <= 2 * step
-    assert float(got @ want / (got.norm() * want.norm())) > MIN_COSINE
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("L,D,H,length", [(200, 768, 12, 197), (264, 1024, 16, 257),
-                                          (16, 64, 2, 13)])
-def test_cuda_bench_modes_and_kernels_match_plain(cuda_device, dtype, L, D, H, length):
-    """The block-variant bench's modes and its two kernels against their
-    plain versions: quantizers and int8 epilogues bit-exact, the int8
-    epilogue's QuickGELU in bf16 within an ulp, the bf16 GEMM and attention
-    at the card's bars."""
-    blk = _block(D, dtype, cuda_device)
-    q = kernels.quantize_block(blk)
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    x = torch.randn(4, L, D, device=cuda_device, generator=g).to(dtype)
-    qkv = torch.randn(4, L, 3 * D, device=cuda_device, generator=g).to(dtype)
-    hid = torch.randn(4, L, 4 * D, device=cuda_device, generator=g).to(dtype)
-    sl = (qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:])
-    kernels.reset_launch_counts()
-    for mode in ("q_round", "no_softmax"):
-        _assert_close(kernels.attention_packed(*sl, H, False, length, mode),
-                      kernels.fused_attention_packed_plain(*sl, H, False, length, mode), dtype)
-    for group in (1, 2, 4):
-        _assert_int8_attention_close(kernels.attention_int8(*sl, H, length, group),
-                                     kernels.attention_int8_plain(*sl, H, length, group), sl[2])
-    assert torch.equal(kernels.qkv_sum(qkv), kernels.qkv_sum_plain(qkv))
-    for mode in ("recip", "static", "cast"):
-        for t in (x, hid.float()):
-            for got, want in zip(kernels.quant_rows(t, mode), kernels.quant_rows_plain(t, mode)):
-                assert torch.equal(got, want)
-        _assert_ln_quant_close(kernels.layernorm_quant_rows(x, q["ln1s"], q["ln1b"], mode=mode),
-                               kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"],
-                                                                  mode=mode))
-    _assert_ln_quant_close(
-        kernels.layernorm_quant_rows(x, q["ln1s"], q["ln1b"], bf16_stats=True),
-        kernels.layernorm_quant_rows_plain(x, q["ln1s"], q["ln1b"], bf16_stats=True))
-    # the bf16 GEMM sums in another order, so T(acc + b) may differ by an
-    # ulp before QuickGELU: the GEMM's bars; the int8 epilogue below has an
-    # exact accumulator and meets the ulp rule
-    fc = (x, blk["mlp"]["w_fc"], blk["mlp"]["b_fc"], "bias_gelu_bf16")
-    _assert_close(kernels.gemm_bias_epilogue(*fc), kernels.gemm_bias_epilogue_plain(*fc), dtype)
-    w_down = (q["wproj"].t().to(dtype) * q["sproj"].to(dtype)).contiguous()
-    _assert_close(kernels.gemm_bias_epilogue(hid, w_down, q["bproj"], "bias32_residual", x),
-                  kernels.gemm_bias_epilogue_plain(hid, w_down, q["bproj"], "bias32_residual", x),
-                  dtype)
-    a_q = kernels.layernorm_quant_rows_plain(x, q["ln2s"], q["ln2b"])
-    for epi in ("dequant_bias_gelu_bf16", "dequant_bias_f32", "dequant_bias_gelu_round"):
-        args = (*a_q, q["wfc"], q["sfc"], q["bfc"], epi, dtype)
-        got, want = kernels.gemm_int8_epilogue(*args), kernels.gemm_int8_epilogue_plain(*args)
-        if epi == "dequant_bias_gelu_bf16":
-            _assert_within_an_ulp(got, want)
-        else:
-            assert torch.equal(got, want)
-    counts = kernels.launch_counts()
-    assert counts["attention_packed.q_round"] == counts["attention_packed.no_softmax"] == 1
-    assert counts["attention_int8"] == 3 and counts["qkv_sum"] == 1
-    assert counts["quant_rows.recip"] == counts["quant_rows.static"] == 2
-    assert counts["layernorm_quant_rows.recip"] == counts["layernorm_quant_rows.cast"] == 1
-    assert counts["layernorm_quant_rows.bf16_stats"] == 1
-    assert counts["gemm_int8_epilogue.dequant_bias_f32"] == 1
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["v0", "v1", "v2", "v10", "int8", "int8h", "int8gb",
                                   "int8noattn", "int8static", "int8recip", "int8cast",
@@ -329,25 +348,8 @@ def test_cuda_bench_stacks_match_plain(cuda_device, name):
 
     geom = bv.Geometry(batch=16)
     prep = next(bench.iter_prepared([name], geom, cuda_device))
-    out = bench.stack_output(prep, bv.KERNEL_OPS)
-    ref = bench.stack_output(prep, bv.PLAIN_OPS)
-    torch.cuda.synchronize()
-    out, ref = out.double().flatten(), ref.double().flatten()
-    rel_bar, cos_bar = (5e-2, 0.999) if "int8" in name else (2e-2, 0.9999)
-    assert float((out - ref).abs().max()) / float(ref.abs().max()) < rel_bar
-    assert float(out @ ref / (out.norm() * ref.norm())) > cos_bar
-
-
-def _packed_and_heads(qkv, h):
-    """The three layouts of one set of q, k, v: column slices of a fused
-    (B, L, 3D) buffer, three packed (B, L, D) tensors, and head-major
-    (B, H, L, dh) tensors."""
-    d = qkv.shape[-1] // 3
-    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
-    packed = tuple(t.contiguous() for t in sl)
-    b, l, _ = qkv.shape
-    heads = tuple(t.reshape(b, l, h, d // h).transpose(1, 2).contiguous() for t in sl)
-    return sl, packed, heads
+    _hold(bench.stack_output(prep, bv.KERNEL_OPS), bench.stack_output(prep, bv.PLAIN_OPS),
+          (5e-2, 0.999) if "int8" in name else (2e-2, 0.9999))
 
 
 @pytest.mark.cuda
@@ -374,13 +376,13 @@ def test_cuda_attention_edges_match_plain(cuda_device, L, causal, dh):
         sl, packed, heads = _packed_and_heads(qkv, H)
         for length in lengths:
             for mode in ("softmax", "q_round", "no_softmax"):
-                _assert_close(kernels.attention_packed(*sl, H, causal, length, mode),
-                              kernels.fused_attention_packed_plain(*sl, H, causal, length, mode),
-                              dtype)
-        _assert_close(kernels.fused_attention_packed(*packed, H, causal),
-                      kernels.fused_attention_packed_plain(*packed, H, causal), dtype)
-        _assert_close(kernels.fused_attention(*heads, causal),
-                      kernels.fused_attention_plain(*heads, causal), dtype)
+                _hold(kernels.attention_packed(*sl, H, causal, length, mode),
+                      kernels.fused_attention_packed_plain(*sl, H, causal, length, mode),
+                      _bars(dtype))
+        _hold(kernels.fused_attention_packed(*packed, H, causal),
+              kernels.fused_attention_packed_plain(*packed, H, causal), _bars(dtype))
+        _hold(kernels.fused_attention(*heads, causal),
+              kernels.fused_attention_plain(*heads, causal), _bars(dtype))
     counts = kernels.launch_counts()
     assert counts["attention_packed"] == 2 * (3 * len(lengths) + 1)
     assert counts["attention_packed.q_round"] == counts["attention_packed.no_softmax"] == \
@@ -390,12 +392,13 @@ def test_cuda_attention_edges_match_plain(cuda_device, L, causal, dh):
 
 # the int8 attention core's edges: one row, a 16-row warp tile and one past
 # it, the text length, the bench's padded image rows and ViT-L/14's 257 and
-# 264; every head width class of the 32-byte k-step (8 ... 128)
+# 264; every head width class of the 32-byte k-step (8 ... 128), and 16, one
+# 16-byte piece of bf16
 INT8_ATTENTION_L = (1, 15, 16, 17, 77, 200, 257, 264)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [8, 24, 32, 64, 128])
+@pytest.mark.parametrize("dh", [8, 16, 24, 32, 64, 128])
 @pytest.mark.parametrize("L", INT8_ATTENTION_L)
 def test_cuda_int8_attention_edges_match_plain(cuda_device, L, dh):
     """The s8 tensor-core attention core where L is no multiple of its 16-row
@@ -411,9 +414,9 @@ def test_cuda_int8_attention_edges_match_plain(cuda_device, L, dh):
         sl = (qkv[..., :H * dh], qkv[..., H * dh:2 * H * dh], qkv[..., 2 * H * dh:])
         for length in sorted({L, max(1, L - 5)}):
             for group in (1, 2, 4):
-                _assert_int8_attention_close(kernels.attention_int8(*sl, H, length, group),
-                                             kernels.attention_int8_plain(*sl, H, length, group),
-                                             sl[2])
+                _hold(kernels.attention_int8(*sl, H, length, group),
+                      kernels.attention_int8_plain(*sl, H, length, group),
+                      _card.int8_attention_rule(sl[2]))
                 calls += 1
     assert kernels.launch_counts()["attention_int8"] == calls
     with pytest.raises(ValueError, match="dh=12 is not a multiple of 8"):
@@ -443,7 +446,7 @@ def test_cuda_gemm_ragged_edges_match_plain(cuda_device, dtype, epilogue):
            if epilogue in ("bias_residual", "bias32_residual") else None)
     out = kernels.gemm_bias_epilogue(a, w, bias, epilogue, res)
     assert out.shape == (8, 197, n) and a.numel() // k == m
-    _assert_close(out, kernels.gemm_bias_epilogue_plain(a, w, bias, epilogue, res), dtype)
+    _hold(out, kernels.gemm_bias_epilogue_plain(a, w, bias, epilogue, res), _bars(dtype))
 
 
 # the fp32 GEMM's edges (128 x 128 tiles, 32-deep K steps): one row, 7 rows
@@ -475,8 +478,8 @@ def test_cuda_fp32_gemm_edges_match_plain(cuda_device, epilogue):
                        if epilogue in ("bias_residual", "bias32_residual") else None)
                 out = kernels.gemm_bias_epilogue(a, w, bias, epilogue, res)
                 assert out.shape == (m, n) and out.dtype == torch.float32
-                _assert_close(out, kernels.gemm_bias_epilogue_plain(a, w, bias, epilogue, res),
-                              torch.float32)
+                _hold(out, kernels.gemm_bias_epilogue_plain(a, w, bias, epilogue, res),
+                      _bars(torch.float32))
                 calls += 1
     counts = kernels.launch_counts()
     assert counts["gemm_bias_epilogue"] == calls
@@ -542,13 +545,9 @@ def test_cuda_int8_gemm_edges_match_plain(cuda_device, dtype, epilogue):
                 res = (torch.randn(m, n, device=cuda_device, generator=g).to(dtype)
                        if epilogue == "dequant_bias_residual" else None)
                 args = (a_q, a_s, w_q, w_s, bias, epilogue, dtype)
-                got = kernels.gemm_int8_epilogue(*args, residual=res)
-                want = kernels.gemm_int8_epilogue_plain(*args, residual=res)
-                if epilogue == "dequant_bias_gelu_bf16":
-                    _assert_within_an_ulp(got, want)
-                else:
-                    torch.cuda.synchronize()
-                    assert torch.equal(got, want), (m, k, n)
+                _hold(kernels.gemm_int8_epilogue(*args, residual=res),
+                      kernels.gemm_int8_epilogue_plain(*args, residual=res),
+                      "ulp" if epilogue == "dequant_bias_gelu_bf16" else "exact")
 
 
 @pytest.mark.cuda
@@ -564,15 +563,12 @@ def test_cuda_quant_rows_widths_match_plain(cuda_device, w):
     for dtype in (torch.bfloat16, torch.float32):
         x = (torch.randn(rows, w, device=cuda_device, generator=g) * 3 + 0.5).to(dtype)
         for mode in kernels._QUANT_MODES:
-            for got, want in zip(kernels.quant_rows(x, mode), kernels.quant_rows_plain(x, mode)):
-                torch.cuda.synchronize()
-                assert torch.equal(got, want), (dtype, mode)
-            for bf16_stats in (False, True):
-                _assert_ln_quant_close(
-                    kernels.layernorm_quant_rows(x, scale, bias, mode=mode, bf16_stats=bf16_stats),
-                    kernels.layernorm_quant_rows_plain(x, scale, bias, mode=mode,
-                                                       bf16_stats=bf16_stats),
-                    bf16_stats)
+            _hold(kernels.quant_rows(x, mode), kernels.quant_rows_plain(x, mode), "exact")
+            for bf16_stats, rule in ((False, "ln_quant"), (True, "ln_quant_bf16_stats")):
+                _hold(kernels.layernorm_quant_rows(x, scale, bias, mode=mode,
+                                                   bf16_stats=bf16_stats),
+                      kernels.layernorm_quant_rows_plain(x, scale, bias, mode=mode,
+                                                         bf16_stats=bf16_stats), rule)
 
 
 @pytest.mark.cuda
@@ -1018,15 +1014,24 @@ def _eva_block(d, hidden, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,L,D,hidden", [(2, 577, 1024, 2730), (3, 17, 128, 341)])
 def test_cuda_eva_kernels_match_plain(cuda_device, b, L, D, hidden):
-    """Each EVA02 kernel and mode against its plain version at the card's
-    bf16 bars: the RoPE QKV epilogue (the class token and v unturned), the
-    SwiGLU epilogue (a ragged hidden padded to a multiple of 8), the
-    hidden's sub-LN over a row wider than its valid width (padded lanes 0),
-    the attention output's on ``layernorm_rows`` at EVA02's eps, then the
-    whole block, with its launches."""
+    """Each EVA02 kernel and mode against its plain version, twice.  First
+    on random-normal activations and the layer's own weights at the card's
+    bf16 bars: the RoPE QKV epilogue (its class token and v against the
+    plain bias epilogue), the SwiGLU epilogue (a ragged hidden padded to a
+    multiple of 8), the hidden's sub-LN over a row wider than its valid
+    width (padded lanes 0), the attention output's LN on ``layernorm_rows``
+    at EVA02's eps.  Then by the EVA02 rule (``_card.eva_agreement``: the
+    bf16 bars, and >= 99.9% of the outputs bit for bit), which must refuse
+    a fault planted in the plain version: the RoPE QKV epilogue on values
+    whose products sum exactly (fault: the class token turned by the last
+    patch's angles), its class token and v against the plain bias epilogue
+    (an ulp at most); the SwiGLU epilogue on such values (w1 and w2
+    traded); the sub-LN (statistics over the stride); the attention
+    output's LN on values of its size (eps 1e-5).  Last the whole block at
+    the bf16 bars.  Each part with its launches."""
     from protoclip_tpu_torch.models import eva
 
-    bf16, h = torch.bfloat16, D // 64
+    bf16, h, hp = torch.bfloat16, D // 64, eva.padded_hidden(hidden)
     blk = _eva_block(D, hidden, cuda_device)
     grid = int(round((L - 1) ** 0.5))
     cos, sin = (t.to(cuda_device) for t in eva.rope_tables(grid, 16, 64))
@@ -1034,32 +1039,77 @@ def test_cuda_eva_kernels_match_plain(cuda_device, b, L, D, hidden):
     x = torch.randn(b, L, D, device=cuda_device, generator=g).to(bf16)
     kernels.reset_launch_counts()
     at, mlp = blk["attn"], blk["mlp"]
-    _assert_close(kernels.gemm_bias_rope(x, at["wqkv"], at["bqkv"], cos, sin, 2 * D),
-                  kernels.gemm_bias_rope_plain(x, at["wqkv"], at["bqkv"], cos, sin, 2 * D), bf16)
     out = kernels.gemm_bias_rope(x, at["wqkv"], at["bqkv"], cos, sin, 2 * D)
+    _hold(out, kernels.gemm_bias_rope_plain(x, at["wqkv"], at["bqkv"], cos, sin, 2 * D),
+          _bars(bf16))
     plain = kernels.gemm_bias_epilogue_plain(x, at["wqkv"], at["bqkv"], "bias")
-    # T(acc + b) against T(T(acc) + b): the class token and v differ by an ulp at most
-    _assert_close(out[:, 0], plain[:, 0], bf16)
-    _assert_close(out[..., 2 * D:], plain[..., 2 * D:], bf16)
+    _hold(out[:, 0], plain[:, 0], _bars(bf16))
+    _hold(out[..., 2 * D:], plain[..., 2 * D:], _bars(bf16))
     hid = kernels.gemm_bias_swiglu(x, mlp["w12"], mlp["b12"])
-    assert hid.shape == (b, L, eva.padded_hidden(hidden)) and not hid[..., hidden:].any()
-    _assert_close(hid, kernels.gemm_bias_swiglu_plain(x, mlp["w12"], mlp["b12"]), bf16)
+    assert hid.shape == (b, L, hp) and not hid[..., hidden:].any()
+    _hold(hid, kernels.gemm_bias_swiglu_plain(x, mlp["w12"], mlp["b12"]), _bars(bf16))
     ffn = mlp["ln_ffn"]
     noisy = hid.clone()
     noisy[..., hidden:] = 100.0
     sub = kernels.layernorm_sub_rows(noisy, ffn["scale"], ffn["bias"])
     assert not sub[..., hidden:].any()
-    _assert_close(sub, kernels.layernorm_sub_rows_plain(noisy, ffn["scale"], ffn["bias"]), bf16)
-    inner, eps = blk["attn"]["ln_inner"], kernels.EVA_LN_EPS
-    _assert_close(kernels.layernorm_rows(x, inner["scale"], inner["bias"], eps),
-                  kernels.layernorm_rows_plain(x, inner["scale"], inner["bias"], eps), bf16)
+    _hold(sub, kernels.layernorm_sub_rows_plain(noisy, ffn["scale"], ffn["bias"]), _bars(bf16))
+    inner, eps = at["ln_inner"], kernels.EVA_LN_EPS
+    _hold(kernels.layernorm_rows(x, inner["scale"], inner["bias"], eps),
+          kernels.layernorm_rows_plain(x, inner["scale"], inner["bias"], eps), _bars(bf16))
     launched = {k: v for k, v in kernels.launch_counts().items() if v}
-    assert launched == {"gemm_bias_epilogue": 3, "gemm_bias_epilogue.bias_rope": 2,
+    assert launched == {"gemm_bias_epilogue": 2, "gemm_bias_epilogue.bias_rope": 1,
                         "gemm_bias_epilogue.bias_swiglu": 1, "layernorm_sub_rows": 1,
                         "layernorm_rows": 1}
     kernels.reset_launch_counts()
-    _assert_close(kernels.fused_eva_block(x, blk, h, cos, sin),
-                  kernels.fused_eva_block_plain(x, blk, h, cos, sin), bf16)
+    ea = _card.exact_sum_values(g, (b, L, D), 8, 1 / 16)
+    ew = _card.exact_sum_values(g, (D, 3 * D), 2, 1 / 16)
+    eb = _card.exact_sum_values(g, (3 * D,), 64, 1 / 256)
+    rope = kernels.gemm_bias_rope_plain(ea, ew, eb, cos, sin, 2 * D)
+    cls_turned = rope.clone()
+    cls_turned[:, 0] = kernels.gemm_bias_rope_plain(ea[:, [0, 0]], ew, eb, cos[-1:], sin[-1:],
+                                                    2 * D)[:, 1]
+    out = kernels.gemm_bias_rope(ea, ew, eb, cos, sin, 2 * D)
+    _hold_refusing(out, rope, cls_turned)
+    plain = kernels.gemm_bias_epilogue_plain(ea, ew, eb, "bias")
+    # T(acc + b) against T(T(acc) + b): the class token and v differ by an ulp at most
+    _hold(out[:, 0], plain[:, 0], _bars(bf16))
+    _hold(out[..., 2 * D:], plain[..., 2 * D:], _bars(bf16))
+    ew = _card.exact_sum_values(g, (D, 2 * hp), 2, 1 / 16)
+    eb = _card.exact_sum_values(g, (2 * hp,), 64, 1 / 256)
+    ew[:, 2 * hidden:], eb[2 * hidden:] = 0, 0  # the padded hidden, as models/eva.py pads it
+
+    def turn_pairs(t):  # w1 and w2 trade places in the interleaved (..., 2H)
+        return t.unflatten(-1, (hp, 2)).flip(-1).flatten(-2)
+
+    hid = kernels.gemm_bias_swiglu(ea, ew, eb)
+    assert hid.shape == (b, L, hp) and not hid[..., hidden:].any()
+    _hold_refusing(hid, kernels.gemm_bias_swiglu_plain(ea, ew, eb),
+                   kernels.gemm_bias_swiglu_plain(ea, turn_pairs(ew), turn_pairs(eb)))
+    noisy = hid.clone()
+    noisy[..., hidden:] = 100.0
+    sub = kernels.layernorm_sub_rows(noisy, ffn["scale"], ffn["bias"])
+    assert not sub[..., hidden:].any()
+    over_stride = kernels.layernorm_rows_plain(hid, F.pad(ffn["scale"], (0, hp - hidden)),
+                                               F.pad(ffn["bias"], (0, hp - hidden)),
+                                               kernels.EVA_LN_EPS)
+    over_stride[..., hidden:] = 0
+    _hold_refusing(sub, kernels.layernorm_sub_rows_plain(noisy, ffn["scale"], ffn["bias"]),
+                   over_stride)
+    # values of an attention output's size (v averaged over the tokens),
+    # where eps = 1e-5 shows
+    o = (0.01 * torch.randn(b, L, D, device=cuda_device, generator=g)).to(bf16)
+    _hold_refusing(kernels.layernorm_rows(o, inner["scale"], inner["bias"], eps),
+                   kernels.layernorm_rows_plain(o, inner["scale"], inner["bias"], eps),
+                   kernels.layernorm_rows_plain(o, inner["scale"], inner["bias"]))
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"gemm_bias_epilogue": 2, "gemm_bias_epilogue.bias_rope": 1,
+                        "gemm_bias_epilogue.bias_swiglu": 1, "layernorm_sub_rows": 1,
+                        "layernorm_rows": 1}
+    x = torch.randn(b, L, D, device=cuda_device, generator=g).to(bf16)
+    kernels.reset_launch_counts()
+    _hold(kernels.fused_eva_block(x, blk, h, cos, sin),
+          kernels.fused_eva_block_plain(x, blk, h, cos, sin), _bars(bf16))
     launched = {k: v for k, v in kernels.launch_counts().items() if v}
     assert launched == {
         "layernorm_rows": 3, "layernorm_sub_rows": 1, "gemm_bias_epilogue": 4,
@@ -1069,27 +1119,43 @@ def test_cuda_eva_kernels_match_plain(cuda_device, b, L, D, hidden):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@DTYPES
 def test_cuda_exact_gelu_epilogue_and_sub_ln_match_plain(cuda_device, dtype):
     """The text MLP's exact-GELU fc epilogue at the EVA02-CLIP text width
-    (77 tokens, 768 -> 3072), and the sub-LN, in both activation dtypes;
-    the text block with it, causal."""
+    (77 tokens, 768 -> 3072), in both activation dtypes: on random-normal
+    values and weights at the card's bars, and on values whose products sum
+    exactly, in bf16 by the EVA02 rule and in fp32 at the fp32 bars,
+    refusing its planted fault (the tanh GELU); the sub-LN over 700 of 768
+    lanes by the same rule, refusing statistics over the whole row; then
+    the text block with the exact GELU, causal, at the card's bars."""
     g = torch.Generator(device=cuda_device).manual_seed(2)
+    rule = "eva" if dtype == torch.bfloat16 else _bars(dtype)
     a = torch.randn(4, 77, 768, device=cuda_device, generator=g).to(dtype)
     w = (torch.randn(768, 3072, device=cuda_device, generator=g) * 768 ** -0.5).to(dtype)
     bias = (torch.randn(3072, device=cuda_device, generator=g) * 0.1).to(dtype)
     kernels.reset_launch_counts()
-    _assert_close(kernels.gemm_bias_epilogue(a, w, bias, "bias_gelu_erf"),
-                  kernels.gemm_bias_epilogue_plain(a, w, bias, "bias_gelu_erf"), dtype)
+    _hold(kernels.gemm_bias_epilogue(a, w, bias, "bias_gelu_erf"),
+          kernels.gemm_bias_epilogue_plain(a, w, bias, "bias_gelu_erf"), _bars(dtype))
+    a = _card.exact_sum_values(g, (4, 77, 768), 8, 1 / 16).to(dtype)
+    w = _card.exact_sum_values(g, (768, 3072), 2, 1 / 16).to(dtype)
+    bias = _card.exact_sum_values(g, (3072,), 64, 1 / 256).to(dtype)
+    acc = torch.matmul(a.float(), w.float()) + bias.float()
+    _hold_refusing(kernels.gemm_bias_epilogue(a, w, bias, "bias_gelu_erf"),
+                   kernels.gemm_bias_epilogue_plain(a, w, bias, "bias_gelu_erf"),
+                   F.gelu(acc, approximate="tanh").to(dtype), rule)
+    x = torch.randn(4, 77, 768, device=cuda_device, generator=g).to(dtype)
     scale = torch.rand(700, device=cuda_device, generator=g) + 0.5
     shift = torch.randn(700, device=cuda_device, generator=g) * 0.1
-    _assert_close(kernels.layernorm_sub_rows(a, scale, shift),
-                  kernels.layernorm_sub_rows_plain(a, scale, shift), dtype)
+    whole_row = kernels.layernorm_rows_plain(x, F.pad(scale, (0, 68)), F.pad(shift, (0, 68)),
+                                             kernels.EVA_LN_EPS)
+    whole_row[..., 700:] = 0
+    _hold_refusing(kernels.layernorm_sub_rows(x, scale, shift),
+                   kernels.layernorm_sub_rows_plain(x, scale, shift), whole_row, rule)
     blk = _block(768, dtype, cuda_device)
-    _assert_close(kernels.fused_transformer_block(a, blk, 12, True, act="gelu"),
-                  kernels.fused_transformer_block_plain(a, blk, 12, True, act="gelu"), dtype)
+    _hold(kernels.fused_transformer_block(x, blk, 12, True, act="gelu"),
+          kernels.fused_transformer_block_plain(x, blk, 12, True, act="gelu"), _bars(dtype))
     launched = {k: v for k, v in kernels.launch_counts().items() if v}
-    assert launched["gemm_bias_epilogue.bias_gelu_erf"] == 2
+    assert launched["gemm_bias_epilogue.bias_gelu_erf"] == 3
     assert launched["layernorm_sub_rows"] == 1
 
 
@@ -1106,8 +1172,8 @@ def test_cuda_attention_at_577_tokens_fits_shared_memory(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     qkv = torch.randn(4, 577, 3 * 1024, device=cuda_device, generator=g).to(torch.bfloat16)
     q, k, v = qkv[..., :1024], qkv[..., 1024:2048], qkv[..., 2048:]
-    _assert_close(kernels.attention_packed(q, k, v, 16),
-                  kernels.fused_attention_packed_plain(q, k, v, 16), torch.bfloat16)
+    _hold(kernels.attention_packed(q, k, v, 16),
+          kernels.fused_attention_packed_plain(q, k, v, 16), _bars(torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -1118,17 +1184,18 @@ def test_cuda_attention_at_backbone_geometries_matches_plain(cuda_device, B, L, 
     """The bf16 attention at the backbones' geometries: EVA02's L = 577 (ten
     64-row query tiles, K and V streamed, a 16-key last tile), ViT-L/14's
     257, the text tower's causal 77 and dh = 128 at
-    L = 577 and 1024, in its three modes and with a length below L, against
-    its plain version with the K2 bars."""
+    L = 577 and 1024, in its three modes and with two lengths below L (the
+    last 5 keys masked, and the last 70), against its plain version with
+    the K2 bars."""
     g = torch.Generator(device=cuda_device).manual_seed(L * 100 + dh)
     qkv = torch.randn(B, L, 3 * H * dh, device=cuda_device, generator=g).to(torch.bfloat16)
     d = H * dh
     sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
-    for length in (L, L - 70):
+    for length in (L, L - 5, L - 70):
         for mode in ("softmax", "q_round", "no_softmax"):
-            _assert_close(kernels.attention_packed(*sl, H, causal, length, mode),
-                          kernels.fused_attention_packed_plain(*sl, H, causal, length, mode),
-                          torch.bfloat16)
+            _hold(kernels.attention_packed(*sl, H, causal, length, mode),
+                  kernels.fused_attention_packed_plain(*sl, H, causal, length, mode),
+                  _bars(torch.bfloat16))
 
 
 @pytest.mark.cuda

@@ -8,9 +8,10 @@ quickstart's own weights file at the bf16 bars.
 The training quickstart's data tree and checkpoint also go through both
 packages' ``run()`` and deployment classifiers in this process, and are
 held within 1e-6.  The BPE vocab is not in the repository, so both
-packages get chip_smoke.py's stand-in tokenizer, which keeps CLIP's SOT
-and EOT ids (the checkpoint has CLIP's 49408-token vocabulary), and the
-port draws its adapter as JAX does (as tests/test_torch_validate.py does).
+packages get the port's stand-in tokenizer (``scripts/_env.py``), which
+keeps CLIP's SOT and EOT ids (the checkpoint has CLIP's 49408-token
+vocabulary), and the port draws its adapter as JAX does (as
+tests/test_torch_validate.py does).
 """
 
 import ast
@@ -35,12 +36,11 @@ from protoclip_tpu.io.export import make_encode_fn as jax_make_encode_fn
 from protoclip_tpu.models import load_clip as jax_load_clip
 from protoclip_tpu.toolkit.classifier import ProtoClipClassifier as JaxClassifier
 
-from chip_smoke import EOT_ID, synthetic_tokenize
-
 import protoclip_tpu_torch.memory.banks as banks
 from protoclip_tpu_torch.core.config import Config
 from protoclip_tpu_torch.examples import serving_quickstart, train_quickstart
 from protoclip_tpu_torch.io import load_checkpoint_triple
+from protoclip_tpu_torch.scripts._env import EOT_ID, synthetic_tokenize
 from protoclip_tpu_torch.toolkit import ProtoClipClassifier
 from protoclip_tpu_torch.train import runner
 from tests.test_torch_export import BF16_BARS, _bars

@@ -55,7 +55,7 @@ def test_port_has_files():
                    "toolkit/microbatch.py", "obs/profiler.py", "io/export.py", "cli/export.py",
                    "cli/serve.py", "client.py", "native/__init__.py", "parallel/__init__.py",
                    "parallel/mesh.py", "parallel/sharding.py", "parallel/dryrun.py",
-                   "models/encoder.py", "io/download.py", "scripts/_env.py",
+                   "models/encoder.py", "io/download.py", "scripts/_env.py", "scripts/_card.py",
                    "scripts/validate_experiment.py", "scripts/validate_accuracy.py",
                    "examples/__init__.py", "examples/train_quickstart.py",
                    "examples/serving_quickstart.py", "scripts/validate_bundle.py",

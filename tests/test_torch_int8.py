@@ -4,8 +4,7 @@ package, on the CPU.
 The same numpy inputs go through ``protoclip_tpu`` (the Pallas kernel in
 interpret mode, or its body run op by op) and through the port, whose
 wrappers run their plain PyTorch versions on the CPU.  The CUDA kernels
-are held to those plain versions on the card by tests/test_torch_cuda.py
-and chip_smoke.py.
+are held to those plain versions on the card by tests/test_torch_cuda.py.
 """
 
 import os
@@ -598,5 +597,5 @@ def test_chip_smoke_lists_every_kernel():
             assert 0 < int(line) <= len(fh.readlines()), name
         if file.startswith("scripts/"):
             assert path == "variants", name
-        else:  # "eva": the EVA02-CLIP backbone's phase, which launches its kernels
-            assert path in ("main", "main_int8", "check", "eva"), name
+        else:  # "eva": the EVA02-CLIP backbone's phase; "times": K1 and K4, which no path runs
+            assert path in ("main", "main_int8", "times", "eva"), name

@@ -162,3 +162,33 @@ def test_the_jax_cases_are_all_run():
     assert len(JAX_CASES) == 17
     assert "test_health_probe_rate_limit_and_recovery" in JAX_CASES
     assert "test_failed_dispatch_releases_the_dropped_requests_tokens" in JAX_CASES
+
+
+class _SlowEntryLock:
+    """A lock that sleeps ``delay_s`` before the dispatcher thread enters it
+    (other threads enter at once): it widens the window between a dispatch's
+    answer and its statistics."""
+
+    def __init__(self, lock, dispatcher, delay_s):
+        self._lock, self._dispatcher, self._delay_s = lock, dispatcher, delay_s
+
+    def __enter__(self):
+        if threading.current_thread() is self._dispatcher:
+            time.sleep(self._delay_s)
+        return self._lock.__enter__()
+
+    def __exit__(self, *exc):
+        return self._lock.__exit__(*exc)
+
+
+def test_a_reply_is_released_after_its_dispatch_is_counted():
+    """``submit`` returns only once the dispatch that answered it is in
+    ``stats``: a read right after a reply never misses it, however slowly
+    the dispatcher reaches its statistics."""
+    mb = MicroBatcher(jax_cases._row_fn, 4, SHAPE, max_wait_s=0.0)
+    mb._stats_lock = _SlowEntryLock(mb._stats_lock, mb._thread, 0.2)
+    try:
+        mb.submit(jax_cases._items(np.random.default_rng(0), 3))
+        assert mb.stats["dispatches"] == 1 and mb.stats["images"] == 3
+    finally:
+        mb.close()

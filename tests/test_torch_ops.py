@@ -4,7 +4,7 @@ The same numpy inputs go through the JAX function (XLA on the CPU, or the
 Pallas kernel in interpret mode) and through the port's counterpart; on
 the CPU every kernel wrapper of the port runs its plain PyTorch version.
 The CUDA kernels themselves are held to those plain versions on the card
-by tests/test_torch_cuda.py and chip_smoke.py.
+by tests/test_torch_cuda.py.
 """
 
 import gzip
