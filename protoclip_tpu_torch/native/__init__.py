@@ -6,10 +6,12 @@ preprocess (JPEG decode -> bicubic resize -> center crop).  Three entry
 points, as in the JAX package: the fused resize + center crop (what
 ``data.transforms.clip_preprocess`` calls), a plain bicubic resize, and a
 box resize with a fused flip (RandomResizedCrop's resize, for callers that
-hold arrays).
-``preprocess.cpp`` (a copy of the JAX package's) computes the resize and
-crop fused and pixel-exact with PIL (the arithmetic contract is in its
-header).  This module compiles it at first use with ``g++ -O3 -shared``
+hold arrays).  A fourth is the port's own: the fused resize + crop of a
+batch of crops in one call, spread over the host's cores (what the
+deployment classifier calls for a scene).
+``preprocess.cpp`` (the JAX package's, plus the batch entry) computes the
+resize and crop fused and pixel-exact with PIL (the arithmetic contract is
+in its header).  This module compiles it at first use with ``g++ -O3 -shared``
 into ``build/native/`` at the repository root, beside the CUDA kernels'
 library, under a key of its own (source hash, flags and host CPU), so the
 two packages never load each other's object.  There is no Python.h and no
@@ -30,7 +32,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -43,7 +45,7 @@ _tried = False
 # -ffp-contract=off: the pixel-exact contract with PIL depends on the
 # coefficient doubles rounding identically; FMA contraction could perturb a
 # weight sitting within 1 ulp of a quantization boundary.
-_BASE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+_BASE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off", "-pthread")
 
 
 def _machine_tag() -> str:
@@ -134,6 +136,11 @@ def load() -> Optional[ctypes.CDLL]:
         lib.resize_shorter_center_crop.restype = ctypes.c_int
         lib.resize_shorter_center_crop.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p,
                                                    ctypes.c_int, ctypes.c_int]
+        vp = ctypes.c_void_p
+        lib.resize_shorter_center_crop_batch.restype = ctypes.c_int
+        lib.resize_shorter_center_crop_batch.argtypes = [vp, vp, vp, ctypes.c_int, vp,
+                                                         ctypes.c_int, ctypes.c_int,
+                                                         ctypes.c_int, vp]
         lib.resize_bicubic.restype = ctypes.c_int
         lib.resize_bicubic.argtypes = [u8p, ctypes.c_int, ctypes.c_int, u8p, ctypes.c_int,
                                        ctypes.c_int]
@@ -167,6 +174,41 @@ def resize_shorter_center_crop(src: np.ndarray, size: int, crop: int) -> Optiona
     )
     return dst if rc == 0 else None
 
+
+def resize_shorter_center_crop_batch(crops: Sequence[np.ndarray], size: int, crop: int,
+                                     out: np.ndarray) -> Optional[np.ndarray]:
+    """:func:`resize_shorter_center_crop` of every crop in one native call,
+    written into ``out[i]``: ``crops`` are (H, W, 3) uint8 arrays (views
+    are copied contiguous), ``out`` a C-contiguous (len(crops), crop, crop,
+    3) uint8 block.  The crops are spread over one worker a core of this
+    process's affinity, at most one a crop, the calling thread among them.
+    Returns each crop's status, 0 where ``out[i]`` is byte for byte the
+    single call's and non-zero where the native path declined the crop
+    (its slot is then unspecified: serve it by PIL), or None when the
+    native path is unavailable."""
+    lib = load()
+    if lib is None:
+        return None
+    n = len(crops)
+    if (out.dtype != np.uint8 or out.shape != (n, crop, crop, 3)
+            or not out.flags.c_contiguous or not out.flags.writeable):
+        raise ValueError(f"out must be a writeable C-contiguous ({n}, {crop}, {crop}, 3) "
+                         f"uint8 block, got {out.dtype} {out.shape}")
+    srcs = [np.ascontiguousarray(c) for c in crops]  # alive across the call
+    for c in srcs:
+        if c.dtype != np.uint8 or c.ndim != 3 or c.shape[2] != 3:
+            raise ValueError(f"crops must be (H, W, 3) uint8, got {c.dtype} {c.shape}")
+    ptrs = (ctypes.c_void_p * n)(*(c.ctypes.data for c in srcs))
+    in_h = np.array([c.shape[0] for c in srcs], np.intc)
+    in_w = np.array([c.shape[1] for c in srcs], np.intc)
+    status = np.full(n, -1, np.intc)
+    workers = min(n, len(os.sched_getaffinity(0)))
+    rc = lib.resize_shorter_center_crop_batch(ptrs, in_h.ctypes.data, in_w.ctypes.data, n,
+                                              out.ctypes.data, size, crop, workers,
+                                              status.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"invalid batch geometry: size={size}, crop={crop}")
+    return status
 
 
 def resize_bicubic(src: np.ndarray, out_h: int, out_w: int) -> Optional[np.ndarray]:

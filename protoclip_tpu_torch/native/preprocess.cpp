@@ -15,14 +15,23 @@
 // source rows those need — for a tall 375x500 -> shorter-side-224 resize the
 // crop keeps ~75% of rows; for panoramic/portrait inputs far less.
 //
-// Built as a plain shared object (no Python.h): the Python side binds via
-// ctypes (protoclip_tpu_torch/native/__init__.py) and falls back to PIL when the
-// toolchain or .so is unavailable.
+// The single-image entry points and their arithmetic are the JAX package's
+// (protoclip_tpu/native/preprocess.cpp).  This copy adds one entry of its
+// own, resize_shorter_center_crop_batch: a whole batch of crops (a scene's)
+// in one call, spread over threads spawned and joined inside the call, each
+// crop through the unchanged single-image entry.
+//
+// Built as a plain shared object (no Python.h, -pthread): the Python side
+// binds via ctypes (protoclip_tpu_torch/native/__init__.py) and falls back to
+// PIL when the toolchain or .so is unavailable.
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <exception>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -194,6 +203,50 @@ int resize_shorter_center_crop(const uint8_t* src, int in_h, int in_w,
       out[x] = clip8(acc);
     }
   }
+  return 0;
+}
+
+// A batch of crops through resize_shorter_center_crop, each byte for byte
+// what the single call gives.
+//
+//   srcs[i]:  (in_h[i], in_w[i], 3) uint8, C-contiguous
+//   dst:      (n, crop, crop, 3) uint8, C-contiguous (crop i written at i)
+//   status:   n ints (written): crop i's return code from the single entry,
+//             or 3 if its worker failed; a non-zero crop's slot is
+//             unspecified and the caller serves it another way
+//
+// Up to `workers` threads take crops by an atomic index; the calling
+// thread is one of them, so workers <= 1 spawns none.  The threads are
+// spawned and joined inside the call: nothing outlives it.  A thread that
+// cannot be spawned leaves its share to the others.  Returns 0, or 1 on
+// invalid arguments (no crop written).
+int resize_shorter_center_crop_batch(const uint8_t* const* srcs, const int* in_h,
+                                     const int* in_w, int n, uint8_t* dst, int size,
+                                     int crop, int workers, int* status) {
+  if (n < 0 || crop <= 0) return 1;
+  const size_t stride = static_cast<size_t>(crop) * crop * 3;
+  std::atomic<int> next{0};
+  const auto work = [&]() {
+    for (int i; (i = next.fetch_add(1, std::memory_order_relaxed)) < n;) {
+      try {
+        status[i] = resize_shorter_center_crop(srcs[i], in_h[i], in_w[i],
+                                               dst + i * stride, size, crop);
+      } catch (...) {  // e.g. std::bad_alloc: this crop alone is declined
+        status[i] = 3;
+      }
+    }
+  };
+  std::vector<std::thread> pool;
+  const int spawn = (workers < n ? workers : n) - 1;
+  for (int t = 0; t < spawn; ++t) {
+    try {
+      pool.emplace_back(work);
+    } catch (const std::exception&) {  // no thread: the others take its crops
+      break;
+    }
+  }
+  work();
+  for (auto& th : pool) th.join();
   return 0;
 }
 

@@ -11,13 +11,18 @@ kept for demo parity.
 The infer path (normalize -> encode -> adapter -> P -> top-k) runs on the
 classifier's device (default: the card) under ``torch.inference_mode``; on
 the card every layer of a ViT image tower is the fused block K2 (K3 under
-``$PROTOCLIP_INT8``).  Crops are resized and center-cropped on the host
-(PIL) to the backbone's resolution, and each call is zero-padded to a
-batch bucket: the buckets keep the JAX API and its row-independence
+``$PROTOCLIP_INT8``).  Crops are resized and center-cropped on the host to
+the backbone's resolution: the RGB uint8 arrays of a call by one native
+call spread over the host's cores (``native.resize_shorter_center_crop_
+batch``), any other crop, or one the native path declines, by
+``clip_preprocess`` (PIL), with the same pixels.  Each call is zero-padded
+to a batch bucket: the buckets keep the JAX API and its row-independence
 contract, and are the fixed shapes a captured serving path can reuse.
 
 Spans (``obs.profiler``): ``classify`` around ``classify_objects``, with
-``classify.preprocess`` (rows: crops); ``infer.issue`` (rows: the bucket)
+``classify.preprocess`` (rows: crops) and inside it
+``classify.preprocess.native`` (rows: the crops the native batch call
+served); ``infer.issue`` (rows: the bucket)
 from the pad to the bucket until the last launch of the top-k returns, and
 ``infer.readback`` (rows: valid rows), the copies to the host, where the
 host waits for the card.
@@ -33,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from protoclip_tpu_torch import native
 from protoclip_tpu_torch.core.config import Config
 from protoclip_tpu_torch.core.protoclip import from_arrays
 from protoclip_tpu_torch.data.transforms import clip_preprocess, normalize_batch
@@ -147,8 +153,23 @@ class ProtoClipClassifier:
         # with the caller's crop list
         with span("classify.preprocess", rows=len(crops)):
             out = np.zeros((len(crops), n_px, n_px, 3), np.uint8)
-            for i, crop in enumerate(crops):
-                out[i] = clip_preprocess(Image.fromarray(np.asarray(crop)), n_px)
+            rgb = [i for i, crop in enumerate(crops)
+                   if isinstance(crop, np.ndarray) and crop.dtype == np.uint8
+                   and crop.ndim == 3 and crop.shape[2] == 3]
+            served = np.zeros(len(crops), bool)
+            if rgb and native.load() is not None:
+                with span("classify.preprocess.native") as sp:
+                    block = out if len(rgb) == len(crops) else np.empty(
+                        (len(rgb), n_px, n_px, 3), np.uint8)
+                    status = native.resize_shorter_center_crop_batch(
+                        [crops[i] for i in rgb], n_px, n_px, block)
+                    ok = status == 0
+                    served[rgb] = ok
+                    if block is not out:
+                        out[served] = block[ok]
+                    sp.rows = int(ok.sum())
+            for i in np.flatnonzero(~served):
+                out[i] = clip_preprocess(Image.fromarray(np.asarray(crops[i])), n_px)
         return out
 
     def infer_canvases(self, canvases_u8: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

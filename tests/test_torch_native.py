@@ -2,7 +2,9 @@
 the fused bicubic resize + center crop (the entry point the port's
 transforms call), the plain bicubic resize and the box resize with its
 fused flip, each pixel-exact with PIL and with the JAX package's
-``native`` over the geometries of ``tests/test_native.py``; the
+``native`` over the geometries of ``tests/test_native.py``; the port's
+batch entry, byte for byte the single one over ragged crops at one worker
+and at one a core, with per-crop refusals; the
 ``$PROTOCLIP_NATIVE`` gate; the build directory and key of its own; the
 eviction of a stale object."""
 
@@ -89,6 +91,96 @@ def test_clip_preprocess_is_native_and_equals_pil_and_jax(built, monkeypatch):
     assert len(calls) == 1
     np.testing.assert_array_equal(via_native, via_pil)
     np.testing.assert_array_equal(via_native, jax_clip_preprocess(img, 224))
+
+
+def _ragged_crops(rng, n):
+    """``n`` crops of a seeded fuzz: the extreme 1x1, 1x300 and 300x1 first,
+    then sides 60-200, every third one a non-contiguous view."""
+    extremes = [(1, 1), (1, 300), (300, 1)]
+    crops = []
+    for i in range(n):
+        h, w = extremes[i] if i < len(extremes) else (int(v) for v in rng.integers(60, 201, 2))
+        if i >= len(extremes) and i % 3 == 0:  # a strided window of a larger frame
+            frame = rng.integers(0, 256, (2 * h + 3, w + 7, 3), np.uint8)
+            crops.append(frame[1::2][:h, 3:3 + w])
+        else:
+            crops.append(rng.integers(0, 256, (h, w, 3), np.uint8))
+    return crops
+
+
+@pytest.mark.parametrize("workers", ["one", "affinity"])
+@pytest.mark.parametrize("n", [1, 2, 7, 16, 17])
+def test_batch_entry_is_byte_identical_to_single_and_pil(built, monkeypatch, n, workers):
+    if workers == "one":
+        monkeypatch.setattr(native.os, "sched_getaffinity", lambda pid: {0})
+    rng = np.random.default_rng(100 + n)
+    crops = _ragged_crops(rng, n)
+    assert n < 4 or not crops[3].flags.c_contiguous
+    out = np.empty((n, 224, 224, 3), np.uint8)
+    status = native.resize_shorter_center_crop_batch(crops, 224, 224, out)
+    assert status.tolist() == [0] * n
+    for i, crop in enumerate(crops):
+        msg = f"crop {i}: {crop.shape}"
+        np.testing.assert_array_equal(out[i], native.resize_shorter_center_crop(crop, 224, 224),
+                                      err_msg=msg)
+        np.testing.assert_array_equal(out[i], _pil(np.ascontiguousarray(crop), 224, 224),
+                                      err_msg=msg)
+
+
+def test_batch_entry_reports_declined_crops(built):
+    rng = np.random.default_rng(7)
+    crops = [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in ((80, 120), (0, 40),
+                                                                   (150, 90), (40, 0))]
+    assert native.resize_shorter_center_crop(crops[1], 64, 64) is None  # declined alone too
+    out = np.zeros((4, 64, 64, 3), np.uint8)
+    status = native.resize_shorter_center_crop_batch(crops, 64, 64, out)
+    assert status.tolist() == [0, 1, 0, 1]
+    for i in (0, 2):
+        np.testing.assert_array_equal(out[i], _pil(crops[i], 64, 64))
+    # an upscale whose resized image is smaller than the crop: every crop declined
+    status = native.resize_shorter_center_crop_batch(crops[::2], 48, 64, out[:2])
+    assert status.tolist() == [2, 2]
+
+
+def test_batch_entry_validates_and_obeys_the_gate(built, monkeypatch):
+    crops = [np.zeros((30, 40, 3), np.uint8)]
+    for bad in (np.zeros((2, 32, 32, 3), np.uint8), np.zeros((1, 32, 32, 3), np.float32),
+                np.zeros((1, 32, 64, 3), np.uint8)[:, :, ::2]):
+        with pytest.raises(ValueError, match="out must be"):
+            native.resize_shorter_center_crop_batch(crops, 32, 32, bad)
+    with pytest.raises(ValueError, match="crops must be"):
+        native.resize_shorter_center_crop_batch([np.zeros((30, 40), np.uint8)], 32, 32,
+                                                np.zeros((1, 32, 32, 3), np.uint8))
+    assert native.resize_shorter_center_crop_batch([], 32, 32,
+                                                   np.zeros((0, 32, 32, 3), np.uint8)).size == 0
+    monkeypatch.setenv("PROTOCLIP_NATIVE", "0")
+    assert native.resize_shorter_center_crop_batch(crops, 32, 32,
+                                                   np.zeros((1, 32, 32, 3), np.uint8)) is None
+
+
+def test_batch_entry_more_workers_than_crops_and_cores(built):
+    """Many more threads than cores, each crop taken once: the atomic index
+    hands out every crop exactly once, whatever the interleaving."""
+    import ctypes
+    import os
+
+    rng = np.random.default_rng(11)
+    crops = [rng.integers(0, 256, (int(h), int(w), 3), np.uint8)
+             for h, w in rng.integers(8, 48, (96, 2))]
+    n, workers = len(crops), 4 * len(os.sched_getaffinity(0)) + 1
+    out = np.zeros((n, 16, 16, 3), np.uint8)
+    ptrs = (ctypes.c_void_p * n)(*(c.ctypes.data for c in crops))
+    in_h = np.array([c.shape[0] for c in crops], np.intc)
+    in_w = np.array([c.shape[1] for c in crops], np.intc)
+    for _ in range(5):
+        status = np.full(n, -1, np.intc)
+        out[:] = 0
+        assert built.resize_shorter_center_crop_batch(
+            ptrs, in_h.ctypes.data, in_w.ctypes.data, n, out.ctypes.data, 16, 16, workers,
+            status.ctypes.data) == 0
+        assert status.tolist() == [0] * n
+        for i, crop in enumerate(crops):
+            np.testing.assert_array_equal(out[i], native.resize_shorter_center_crop(crop, 16, 16))
 
 
 @pytest.mark.parametrize("oh,ow", [(224, 298), (298, 224), (224, 224), (112, 149), (448, 640)])

@@ -7,7 +7,10 @@ Bars: fp32 top-k probabilities within 1e-5 with equal ids and names; bf16
 features and class probabilities at K2's plain-version bars (max|diff| /
 max|JAX| < 1e-2, cosine > 0.9999: JAX on the CPU runs its MLP in bf16
 where the port's plain K2 keeps the fc bias and QuickGELU in fp32); equal
-OOD accuracies; a bit-identical t-SNE embedding.
+OOD accuracies; a bit-identical t-SNE embedding.  The classifier's crop
+preprocess (one native batch call for its RGB uint8 arrays, PIL for the
+rest) gives the serial PIL loop's bytes on a mixed list, with the native
+library and without, and its span counts the crops the batch call served.
 """
 
 import dataclasses
@@ -88,6 +91,62 @@ def test_classifier_fp32_matches_jax(fp32_pair):
     np.testing.assert_allclose(p, jp, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(i, ji)
     assert i.dtype == np.int32
+
+
+def _mixed_crops():
+    """RGB uint8 arrays, a grayscale and an RGBA array, a non-contiguous
+    view and a PIL image: (crops, how many are (H, W, 3) uint8 arrays)."""
+    rng = np.random.default_rng(9)
+    frame = rng.integers(0, 256, (120, 150, 3), np.uint8)
+    crops = [rng.integers(0, 256, (50, 70, 3), np.uint8),
+             rng.integers(0, 256, (40, 30), np.uint8),
+             frame[10:90:2, 5:120],  # a strided view
+             rng.integers(0, 256, (45, 64, 4), np.uint8),
+             rng.integers(0, 256, (33, 33, 3), np.uint8),
+             Image.fromarray(rng.integers(0, 256, (28, 36, 3), np.uint8))]
+    assert not crops[2].flags.c_contiguous
+    return crops, 3
+
+
+@pytest.mark.parametrize("gate", ["unset", "0"])
+def test_preprocess_crops_matches_the_serial_loop(fp32_pair, monkeypatch, gate):
+    from protoclip_tpu_torch.data.transforms import clip_preprocess
+
+    clf, _ = fp32_pair
+    n_px = clf.clip_cfg.image_resolution
+    crops, _ = _mixed_crops()
+    monkeypatch.setenv("PROTOCLIP_NATIVE", "0")  # the reference: PIL, one crop at a time
+    ref = np.stack([clip_preprocess(Image.fromarray(np.asarray(c)), n_px) for c in crops])
+    if gate == "unset":
+        monkeypatch.delenv("PROTOCLIP_NATIVE")
+    got = clf._preprocess_crops(crops)
+    assert got.dtype == np.uint8 and got.shape == (len(crops), n_px, n_px, 3)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_preprocess_native_span_counts_the_rgb_crops(fp32_pair, monkeypatch):
+    from protoclip_tpu_torch import native
+    from protoclip_tpu_torch.obs import profiler
+
+    monkeypatch.delenv("PROTOCLIP_NATIVE", raising=False)
+    if native.load() is None:
+        pytest.skip("native preprocess unavailable (no g++)")
+    clf, _ = fp32_pair
+    crops, n_rgb = _mixed_crops()
+    profiler.clear()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            clf._preprocess_crops(crops)
+            clf._preprocess_crops(_crops())
+        by_name = {}
+        for r in profiler.records():
+            by_name.setdefault(r.name, []).append(r)
+    finally:
+        profiler.clear()
+    outer, inner = by_name["classify.preprocess"], by_name["classify.preprocess.native"]
+    assert [r.rows for r in outer] == [len(crops), len(_crops())]
+    assert [r.rows for r in inner] == [n_rgb, len(_crops())]
+    assert [r.parent for r in inner] == [r.id for r in outer]
 
 
 def test_top_k_orders_ties_as_jax():
