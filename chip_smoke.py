@@ -190,7 +190,17 @@ Phases, one JSON line each on stdout:
              the RoPE, SwiGLU and exact-GELU epilogues, the attention and
              the block; the image block at B = 16, the text fc at B = 256
              prompts).
-17. kernels - the contract line: every ported kernel with the path or phase
+17. bige   - EVA02-CLIP-bigE-14-plus at its published widths (64 post-norm
+             blocks of 1792, 16 heads of 112, MLP 15360) with random
+             weights drawn by name through ``train.runner.make_encode_fns``:
+             one encode at the bank's batch (1024 images) and one at its
+             short batch (96), each with its own launch counts (7 a block)
+             and its time; layer 0's post-norm block and its residual
+             LayerNorm (``layernorm_residual_rows``) held to their plain
+             versions at both batches (the post-norm block's bars, two bf16
+             steps of the top of the range; the EVA02 rule) and timed at the
+             bank's.
+18. kernels - the contract line: every ported kernel with the path or phase
              that launched it (K1 and K4, which no path runs: ``times``),
              its launches (by path, the runner's, the
              trainers', the server's and the tools' too, and per replay of
@@ -227,10 +237,10 @@ import sys
 import tempfile
 import time
 
-from protoclip_tpu_torch.scripts._card import (BARS, INT8_BLOCK_BARS, TIME_RUNS, agreement,
-                                               attention_flops, bars_agreement, bound_ms,
-                                               device_ms, int8_attention_rule, k2_work,
-                                               median_ms)
+from protoclip_tpu_torch.scripts._card import (BARS, INT8_BLOCK_BARS, POSTNORM_BLOCK_BARS,
+                                               TIME_RUNS, agreement, attention_flops,
+                                               bars_agreement, bound_ms, device_ms,
+                                               int8_attention_rule, k2_work, median_ms)
 from protoclip_tpu_torch.scripts._env import EOT_ID, SOT_ID, synthetic_tokenize
 
 def emit(obj) -> None:
@@ -3753,6 +3763,11 @@ KERNEL_SOURCES = {  # name: (source, TPU function it replaces, the run that laun
     "gemm_bias_epilogue.bias_gelu_erf": ("protoclip_tpu_torch/csrc/gemm_bias_epilogue.cu",
                                          f"{PALLAS}:321", "eva"),
     "fused_eva_block": ("protoclip_tpu_torch/ops/kernels.py", f"{PALLAS}:252", "eva"),
+    # EVA02-CLIP-bigE's post-norm block and its residual LayerNorm, counted
+    # in its own encode and timed at its bank's batch
+    "layernorm_residual_rows": ("protoclip_tpu_torch/csrc/layernorm_rows.cu", f"{PALLAS}:263",
+                                "bige"),
+    "fused_eva_postnorm_block": ("protoclip_tpu_torch/ops/kernels.py", f"{PALLAS}:252", "bige"),
 }
 BENCH = "scripts/bench_block_variants.py"
 CSRC = "protoclip_tpu_torch/csrc/"
@@ -3790,6 +3805,25 @@ KERNEL_SOURCES.update({  # the block-variant bench (S1): its modes, its kernels,
 EVA_BACKBONE = "EVA02-CLIP-L-14-336"
 EVA_BATCH, EVA_TEXT_BATCH = 16, 256
 EVA_TEXT_CHECKED = 4  # prompts whose card features are held to the CPU's fp32 ones
+BIGE_BACKBONE = "EVA02-CLIP-bigE-14-plus"
+BIGE_BATCHES = (1024, 96)  # the bank build's batch, and its short batch over 3168 images
+
+
+def timed_entry(rule, kernel, plain, library, n_bytes, ops):
+    """One kernel's row: held to its plain version by ``rule``, timed beside
+    the plain version and the library's call (None: there is none) and its
+    bound."""
+    import torch
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    held = agreement(out, ref, rule)
+    del out, ref
+    bnd, by, by_bytes, by_ops = bound_ms(n_bytes, ops)
+    return {"ms": median_ms(kernel), "device_ms": device_ms(kernel), "plain_ms": median_ms(plain),
+            "library_ms": None if library is None else median_ms(library),
+            "bound_ms": bnd, "bound_by": by, "bytes_ms": by_bytes, "ops_ms": by_ops,
+            "rule": rule, **held}
 
 
 def phase_eva(torch, np):
@@ -3866,16 +3900,8 @@ def phase_eva(torch, np):
     # holds them on inputs whose products sum exactly, in the cuda tests)
     r = {}
 
-    def entry(name, rule, kernel, plain, library, n_bytes, ops):
-        out, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        held = agreement(out, ref, rule)
-        bnd, by, by_bytes, by_ops = bound_ms(n_bytes, ops)
-        r[name] = {"ms": median_ms(kernel), "device_ms": device_ms(kernel),
-                   "plain_ms": median_ms(plain),
-                   "library_ms": None if library is None else median_ms(library),
-                   "bound_ms": bnd, "bound_by": by, "bytes_ms": by_bytes, "ops_ms": by_ops,
-                   "rule": rule, **held}
+    def entry(name, *args):
+        r[name] = timed_entry(*args)
 
     tables = 2 * cos.numel() * 4
     entry("gemm_bias_epilogue.bias_rope", BARS["bfloat16"],
@@ -3935,6 +3961,86 @@ def phase_eva(torch, np):
     return counts, result
 
 
+def phase_bige(torch, np):
+    """EVA02-CLIP-bigE-14-plus through the main path (phase 17).  Returns
+    the launch counts of the encode at the bank's batch and the phase's
+    result (with the timings of the post-norm block and its LayerNorm)."""
+    import torch.nn.functional as F
+
+    from protoclip_tpu_torch.core.config import Config
+    from protoclip_tpu_torch.ops import kernels as K
+    from protoclip_tpu_torch.train.runner import make_encode_fns
+
+    bank, short = BIGE_BATCHES
+    t0 = time.perf_counter()
+    encode_images, _, cfg, params = make_encode_fns(
+        Config(backbone=BIGE_BACKBONE, batch_size=bank), device="cuda", int8=False)
+    load_s = time.perf_counter() - t0
+    layers, px = cfg.vision_layers, cfg.image_resolution
+    images = np.random.default_rng(SEED).integers(0, 256, (bank, px, px, 3), dtype=np.uint8)
+    want = {"fused_eva_postnorm_block": layers, "layernorm_residual_rows": 2 * layers,
+            "attention_packed": layers, "gemm_bias_epilogue": 4 * layers,
+            "gemm_bias_epilogue.bias_gelu_erf": layers}
+    encodes = {}
+    for b in BIGE_BATCHES:
+        K.reset_launch_counts()
+        feats = encode_images(images[:b])
+        torch.cuda.synchronize()
+        launched = {k: n for k, n in K.launch_counts().items() if n}
+        require(launched == want, f"bigE encode of {b} images launched {launched}, "
+                                  f"expected {want}")
+        require(feats.shape == (b, cfg.embed_dim) and bool(torch.isfinite(feats).all()),
+                f"bigE features of {b} images: {tuple(feats.shape)}, or not finite")
+        start = time.perf_counter()
+        encode_images(images[:b])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        encodes[b] = {"launches": launched, "s": seconds, "images_per_s": b / seconds}
+    del feats, images
+
+    bf16, d, h = torch.bfloat16, cfg.vision_width, cfg.vision_heads
+    hid, l = cfg.vision_mlp_width, (px // cfg.vision_patch_size) ** 2 + 1
+    blk = params["visual"]["blocks"][0]
+    ln = (blk["ln_1"]["scale"], blk["ln_1"]["bias"])
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    holds, r = {}, {}
+    for b in (short, bank):  # the bank's batch last: its tensors are the timed ones
+        x = torch.randn(b, l, d, device="cuda", generator=g).to(bf16)
+        a = torch.randn(b, l, d, device="cuda", generator=g).to(bf16)
+        with torch.inference_mode():
+            holds[b] = {
+                "fused_eva_postnorm_block": bars_agreement(
+                    K.fused_eva_postnorm_block(x, blk, h),
+                    K.fused_eva_postnorm_block_plain(x, blk, h), POSTNORM_BLOCK_BARS),
+                "layernorm_residual_rows": agreement(
+                    K.layernorm_residual_rows(a, x, *ln), K.layernorm_residual_rows_plain(a, x, *ln),
+                    "eva")}
+        torch.cuda.empty_cache()
+    m = bank * l
+    with torch.inference_mode():
+        r["layernorm_residual_rows"] = timed_entry(
+            "eva", lambda: K.layernorm_residual_rows(a, x, *ln),
+            lambda: K.layernorm_residual_rows_plain(a, x, *ln),
+            lambda: x + F.layer_norm(a, (d,), *(t.to(bf16) for t in ln), K.EVA_LN_EPS),
+            3 * m * d * 2 + 2 * d * 4, 10 * m * d)
+        r["fused_eva_postnorm_block"] = timed_entry(
+            POSTNORM_BLOCK_BARS, lambda: K.fused_eva_postnorm_block(x, blk, h),
+            lambda: K.fused_eva_postnorm_block_plain(x, blk, h), None,
+            (2 * m * d + 4 * d * d + 2 * d * hid + 4 * d + hid) * 2 + 4 * d * 4,
+            8 * m * d * d + 4 * m * d * hid + attention_flops(bank, l, d, False))
+    del params, blk, ln, x, a, encode_images
+    torch.cuda.empty_cache()
+    result = {"backbone": BIGE_BACKBONE, "batches": list(BIGE_BATCHES), "L": l, "D": d,
+              "heads": h, "hidden": hid, "load_s": load_s,
+              "encodes": {str(b): e for b, e in encodes.items()},
+              "holds": {str(b): c for b, c in holds.items()}, "kernels": r}
+    emit({"phase": "bige", **result})
+    bad = [f"{name} at {b}" for b, c in holds.items() for name, row in c.items() if not row["ok"]]
+    bad += [name for name, row in r.items() if not row["ok"]]
+    require(not bad, f"bigE kernels off their plain versions at the encode's batches: {bad}")
+    return encodes[bank]["launches"], result
+
+
 def phase_kernels(counts, times, vtimes, serve):
     """One entry per ported kernel, timed at the image block (ViT-B/16,
     B=256), or, for the bench's modes, kernels and sites, at the bench's
@@ -3955,7 +4061,7 @@ def phase_kernels(counts, times, vtimes, serve):
         if path == "variants":
             parts = [vtimes[name]]
         else:
-            timed = times["eva" if path == "eva" else "image"]["kernels"]
+            timed = times[path if path in ("eva", "bige") else "image"]["kernels"]
             parts = [v for k, v in timed.items() if k == name or k.startswith(name + ".")]
         lib = [pt["library_ms"] for pt in parts]
         by_bytes, by_ops = sum(pt["bytes_ms"] for pt in parts), sum(pt["ops_ms"] for pt in parts)
@@ -4036,6 +4142,7 @@ def main() -> int:
     _, counts["variants"] = phase_variants(torch, np)
     vtimes = phase_variant_times(torch, np)
     counts["eva"], times["eva"] = phase_eva(torch, np)
+    counts["bige"], times["bige"] = phase_bige(torch, np)
     phase_kernels(counts, times, vtimes, serve)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

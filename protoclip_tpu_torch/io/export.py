@@ -210,7 +210,8 @@ def save_serving_bundle(
     towers: an EVA02-CLIP backbone raises.
     """
     if getattr(cfg, "is_eva", False):
-        raise ValueError(f"{cfg.name}: serving bundles hold OpenAI's towers, not EVA02's")
+        raise ValueError(f"{cfg.name}: serving bundles hold OpenAI's towers, not EVA02-CLIP's "
+                         f"({cfg.vision_block})")
     sizes = sorted({int(batch_size), *(int(b) for b in (batch_sizes or ()))})
     if any(b < 1 for b in sizes):
         raise ValueError(f"batch sizes must be >= 1, got {sizes}")

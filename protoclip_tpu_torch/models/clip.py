@@ -5,9 +5,10 @@ The same 7 OpenAI backbones, with the architecture taken from the registry
 or inferred from a state dict's tensor shapes: the ViT towers
 (``models/vit.py``) and the ModifiedResNet towers (``models/resnet.py``).
 Beside them the port's own registry (:data:`PORT_BACKBONE_CONFIGS`) holds
-EVA02-CLIP-L/14-336, whose image tower is EVA02's (``models/eva.py``) and
-whose text tower is OpenAI's with the exact GELU, read from EVA-CLIP's
-state-dict layout.  K3, the W8A8 serving mode, does not run it.
+EVA02-CLIP-L/14-336, whose image tower is EVA02's, and EVA02-CLIP-bigE-14-plus,
+whose image tower is EVA-CLIP's post-norm one (both ``models/eva.py``); both
+text towers are OpenAI's with the exact GELU, read from EVA-CLIP's
+state-dict layout.  K3, the W8A8 serving mode, runs neither.
 
 Parameters are nested dicts of tensors.  Transformer blocks are a list of
 per-layer dicts whose attention carries the fused ``wqkv`` (D, 3D) and
@@ -61,9 +62,10 @@ class CLIPConfig:
     # 64-dims-per-head rule).
     n_vision_heads: Optional[int] = None
     n_text_heads: Optional[int] = None
-    # The image tower's block: OpenAI's ("clip") or EVA02's ("eva02", with
-    # its SwiGLU width and the grid its RoPE was pretrained at); the text
-    # MLP's activation ("quick_gelu", or "gelu" in EVA02-CLIP).
+    # The image tower's block: OpenAI's ("clip"), EVA02's ("eva02", with
+    # its SwiGLU width and the grid its RoPE was pretrained at) or EVA-CLIP's
+    # post-norm block ("eva_postnorm", with its MLP width); the text MLP's
+    # activation ("quick_gelu", or "gelu" in EVA02-CLIP).
     vision_block: str = "clip"
     vision_mlp_width: Optional[int] = None
     rope_pt_grid: Optional[int] = None
@@ -75,7 +77,8 @@ class CLIPConfig:
 
     @property
     def is_eva(self) -> bool:
-        return self.vision_block == "eva02"
+        """An EVA-CLIP image tower (``models/eva.py``), of either block."""
+        return self.vision_block in (_eva.EVA02, _eva.POSTNORM)
 
     @property
     def vision_heads(self) -> int:
@@ -108,10 +111,18 @@ BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
 # EVA02-CLIP-L-14-336.json): vision 1024 / 24 / 16 heads of 64, patch 14 at
 # 336 px, SwiGLU hidden int(1024 * 2.6667) = 2730, RoPE pretrained at
 # pt_hw_seq_len 16; text 768 / 12 / 12 with nn.GELU; embed 768.
+# EVA02-CLIP-bigE-14-plus (model_configs/EVA02-CLIP-bigE-14-plus.json):
+# vision 1792 / 64 / 16 heads of 112 (head_width), patch 14 at 224 px,
+# postnorm, MLP int(1792 * 8.571428571428571) = 15360 with nn.GELU; text
+# 1280 / 32 / 20 with nn.GELU; embed 1024.
 PORT_BACKBONE_CONFIGS: Dict[str, CLIPConfig] = {
     "EVA02-CLIP-L-14-336": CLIPConfig(
         "EVA02-CLIP-L-14-336", 768, 336, 24, 1024, 14, transformer_width=768,
-        vision_block="eva02", vision_mlp_width=2730, rope_pt_grid=16, text_act="gelu"),
+        vision_block=_eva.EVA02, vision_mlp_width=2730, rope_pt_grid=16, text_act="gelu"),
+    "EVA02-CLIP-bigE-14-plus": CLIPConfig(
+        "EVA02-CLIP-bigE-14-plus", 1024, 224, 64, 1792, 14, transformer_width=1280,
+        transformer_layers=32, n_vision_heads=16, vision_block=_eva.POSTNORM,
+        vision_mlp_width=15360, text_act="gelu"),
 }
 
 
@@ -161,7 +172,7 @@ def clip_forward(params: Params, images: torch.Tensor, tokens: torch.Tensor,
 def init_clip_params(rng: np.random.Generator, cfg: CLIPConfig,
                      dtype: torch.dtype = torch.float32) -> Params:
     """Random CLIP parameters from a numpy generator (CPU tensors).  An
-    EVA02 tower is drawn in EVA-CLIP's layout and converted
+    EVA-CLIP tower is drawn in EVA-CLIP's layout and converted
     (:func:`models.eva.visual_from_state_dict`)."""
     if cfg.is_eva:
         visual = cast_params(_eva.visual_from_state_dict(
@@ -307,19 +318,35 @@ def _count_layers(sd: Dict[str, Any], prefix: str, suffix: str) -> int:
 
 def _infer_eva_config(sd: Dict[str, Any]) -> CLIPConfig:
     """EVA-CLIP's layout (``visual.patch_embed``, ``visual.blocks``,
-    ``text.*``).  The RoPE pretraining grid is no shape: a registered
-    backbone of the same shapes gives it, else EVA02-CLIP's 16."""
-    if "visual.blocks.0.attn.q_proj.weight" not in sd or "visual.blocks.0.mlp.w3.weight" not in sd:
-        raise ValueError("an EVA-CLIP state dict without separate q/k/v projections and a SwiGLU "
-                         "MLP (subln, naiveswiglu): only EVA02's sub-LN block is supported")
+    ``text.*``), of EVA02's sub-LN block (separate q/k/v projections, a
+    SwiGLU ``mlp.w1/w2/w3``) or of the post-norm block (a fused
+    ``attn.qkv``, ``mlp.fc1/fc2``).  What no shape says comes from the
+    registered backbone of the same shapes: EVA02's RoPE pretraining grid
+    (else EVA02-CLIP's 16), and the post-norm tower's head count, and that
+    its blocks are post-norm at all (EVA-CLIP's pre-norm towers have the
+    same keys), so a post-norm state dict of no registered shape raises."""
+    if "visual.blocks.0.attn.q_proj.weight" in sd and "visual.blocks.0.mlp.w3.weight" in sd:
+        block, mlp_key = _eva.EVA02, "visual.blocks.0.mlp.w1.weight"
+    elif "visual.blocks.0.attn.qkv.weight" in sd and "visual.blocks.0.mlp.fc1.weight" in sd:
+        block, mlp_key = _eva.POSTNORM, "visual.blocks.0.mlp.fc1.weight"
+    else:
+        raise ValueError("an EVA-CLIP state dict with neither EVA02's sub-LN block (separate "
+                         "q/k/v projections, a SwiGLU mlp.w1/w2/w3) nor the post-norm block (a "
+                         "fused attn.qkv, mlp.fc1/fc2): no other EVA-CLIP block is supported")
     pe = sd["visual.patch_embed.proj.weight"]
     width, patch = int(pe.shape[0]), int(pe.shape[-1])
     resolution = patch * round((sd["visual.pos_embed"].shape[-2] - 1) ** 0.5)
     layers = _count_layers(sd, "visual.blocks", ".norm1.weight")
-    mlp = int(sd["visual.blocks.0.mlp.w1.weight"].shape[0])
+    mlp = int(sd[mlp_key].shape[0])
     known = next((c for c in PORT_BACKBONE_CONFIGS.values()
-                  if (c.vision_width, c.vision_layers, c.vision_patch_size, c.image_resolution,
-                      c.vision_mlp_width) == (width, layers, patch, resolution, mlp)), None)
+                  if (c.vision_block, c.vision_width, c.vision_layers, c.vision_patch_size,
+                      c.image_resolution, c.vision_mlp_width)
+                  == (block, width, layers, patch, resolution, mlp)), None)
+    if block == _eva.POSTNORM and known is None:
+        raise ValueError(f"an EVA-CLIP state dict with a fused attn.qkv and mlp.fc1/fc2 at width "
+                         f"{width}, {layers} blocks, MLP {mlp}, patch {patch} at {resolution} px "
+                         "matches no registered post-norm backbone: its keys say neither that "
+                         "its blocks are post-norm nor its head count (PORT_BACKBONE_CONFIGS)")
     return CLIPConfig(
         known.name if known else "custom",
         int(sd["visual.head.weight"].shape[0]),
@@ -331,9 +358,11 @@ def _infer_eva_config(sd: Dict[str, Any]) -> CLIPConfig:
         int(sd["text.token_embedding.weight"].shape[0]),
         int(sd["text.ln_final.weight"].shape[0]),
         _count_layers(sd, "text.transformer.resblocks", ".ln_1.weight"),
-        vision_block="eva02",
+        n_vision_heads=known.n_vision_heads if known else None,
+        vision_block=block,
         vision_mlp_width=mlp,
-        rope_pt_grid=known.rope_pt_grid if known else _eva.DEFAULT_PT_GRID,
+        rope_pt_grid=(None if block == _eva.POSTNORM
+                      else known.rope_pt_grid if known else _eva.DEFAULT_PT_GRID),
         text_act="gelu",
     )
 
@@ -482,21 +511,38 @@ def convert_clip_state_dict(sd: Dict[str, Any], cfg: Optional[CLIPConfig] = None
     return cfg, params
 
 
+def _eva_text(sd: Dict[str, np.ndarray], cfg: CLIPConfig) -> Params:
+    """EVA-CLIP's ``text.*``: OpenAI's text tower under the ``text.``
+    prefix."""
+    t = "text."
+    return {
+        "token_embedding": _t(sd[t + "token_embedding.weight"]),
+        "positional_embedding": _t(sd[t + "positional_embedding"]),
+        "blocks": _blocks_from_state_dict(sd, t + "transformer", cfg.transformer_layers),
+        "ln_final": _ln(sd[t + "ln_final.weight"], sd[t + "ln_final.bias"]),
+        "text_projection": _t(sd[t + "text_projection"]),
+    }
+
+
 def _convert_eva(sd: Dict[str, np.ndarray], cfg: CLIPConfig) -> Params:
     """EVA-CLIP: ``visual.*`` to the EVA02 tower; ``text.*``, OpenAI's text
     tower under the ``text.`` prefix; ``logit_scale``."""
-    t = "text."
-    return {
-        "visual": _eva.visual_from_state_dict(sd, cfg),
-        "text": {
-            "token_embedding": _t(sd[t + "token_embedding.weight"]),
-            "positional_embedding": _t(sd[t + "positional_embedding"]),
-            "blocks": _blocks_from_state_dict(sd, t + "transformer", cfg.transformer_layers),
-            "ln_final": _ln(sd[t + "ln_final.weight"], sd[t + "ln_final.bias"]),
-            "text_projection": _t(sd[t + "text_projection"]),
-        },
-        "logit_scale": _t(sd["logit_scale"]),
-    }
+    return {"visual": _eva.visual_from_state_dict(sd, cfg), "text": _eva_text(sd, cfg),
+            "logit_scale": _t(sd["logit_scale"])}
+
+
+def _convert_eva_postnorm(sd: Dict[str, Any], cfg: CLIPConfig, dtype: torch.dtype,
+                          device: torch.device) -> Params:
+    """EVA-CLIP's post-norm layout straight into ``dtype`` on ``device``
+    (cast as :func:`cast_params` casts), :func:`load_clip`'s converter for
+    it: the image tower block by block
+    (:func:`models.eva.postnorm_visual_from_state_dict`), so that no fp32
+    copy of it is held whole; the text tower (0.69 B parameters in bigE)
+    through fp32 as :func:`convert_clip_state_dict` converts it."""
+    text = {k: _np(v) for k, v in sd.items() if k.startswith("text.")}
+    return {"visual": _eva.postnorm_visual_from_state_dict(sd, cfg, dtype, device),
+            "text": to_device(cast_params(_eva_text(text, cfg), dtype), device),
+            "logit_scale": _t(_np(sd["logit_scale"])).to(device)}
 
 
 # LayerNorm affine, the EVA02 block's sub-LNs and its RoPE tables stay fp32
@@ -529,11 +575,12 @@ def quantize_for_serving(params: Params) -> Params:
     quantize_block`) beside each tower's ``blocks``, as
     ``protoclip_tpu.models.clip.quantize_for_serving`` (``clip.py:353-373``)
     does.  The towers pick it up when ``$PROTOCLIP_INT8`` is on, so the
-    weights are quantized once, here, and not on every encode.  An EVA02
-    tower (its ``rope`` tables) raises: K3 has no EVA02 block."""
-    if "rope" in params.get("visual", {}):
-        raise ValueError("the W8A8 serving mode (K3, $PROTOCLIP_INT8) has no EVA02 block: "
-                         "run EVA02-CLIP backbones in bf16")
+    weights are quantized once, here, and not on every encode.  An
+    EVA-CLIP tower (its biased patch embedding) raises: K3 has neither
+    EVA02's block nor the post-norm one."""
+    if "patch_bias" in params.get("visual", {}):
+        raise ValueError("the W8A8 serving mode (K3, $PROTOCLIP_INT8) has no EVA-CLIP block "
+                         "(EVA02's or the post-norm one): run EVA02-CLIP backbones in bf16")
     out = dict(params)
     for tower in ("visual", "text"):
         sub = params.get(tower)
@@ -642,6 +689,9 @@ def load_clip(backbone: str, weights_path: Optional[str] = None,
         with span("load.convert", rows=len(sd),
                   nbytes=sum(v.numel() * v.element_size() for v in sd.values()
                              if isinstance(v, torch.Tensor))):
+            cfg = infer_config_from_state_dict(sd)
+            if cfg.vision_block == _eva.POSTNORM:
+                return cfg, _maybe_quantize(_convert_eva_postnorm(sd, cfg, dtype, dev), int8)
             cfg, params = convert_clip_state_dict(sd)
         return cfg, _maybe_quantize(to_device(cast_params(params, dtype), dev), int8)
 

@@ -6,7 +6,8 @@ MLP with QuickGELU (or, in the EVA02-CLIP text towers, the exact GELU).
 Blocks are a list of per-layer dicts (the JAX package stacks them along a
 leading axis for ``lax.scan``); each layer's attention holds the fused
 ``wqkv`` (D, 3D) and ``bqkv`` (3D,) built once at load.  The EVA02 image
-tower's blocks (``models/eva.py``) run :func:`eva_transformer`.
+tower's blocks (``models/eva.py``) run :func:`eva_transformer`, the
+post-norm blocks of EVA02-CLIP-bigE :func:`eva_postnorm_transformer`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from protoclip_tpu_torch.ops.activations import quick_gelu
 from protoclip_tpu_torch.ops.attention import _causal_mask, multi_head_attention
 from protoclip_tpu_torch.ops.kernels import (
     fused_eva_block,
+    fused_eva_postnorm_block,
     fused_transformer_block,
     fused_transformer_block_int8,
     int8_enabled,
@@ -99,6 +101,16 @@ def eva_transformer(x: torch.Tensor, blocks: List[Dict], n_head: int,
     (``cos``, ``sin``: (L - 1, head_dim) fp32)."""
     for block in blocks:
         x = fused_eva_block(x, block, n_head, rope["cos"], rope["sin"])
+    return x
+
+
+def eva_postnorm_transformer(x: torch.Tensor, blocks: List[Dict], n_head: int) -> torch.Tensor:
+    """Run post-norm image blocks in order (x + LN1(Attn(x)), x +
+    LN2(MLP(x))), each one call of ``ops.kernels.fused_eva_postnorm_block``
+    (its kernel chain on the card, its plain version on the CPU); the
+    residual stream is never normalised inside the tower."""
+    for block in blocks:
+        x = fused_eva_postnorm_block(x, block, n_head)
     return x
 
 

@@ -35,6 +35,9 @@ _SIGNATURES = {
     "layernorm_sub_rows": (
         c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_float, c_ptr],
     ),
+    "layernorm_residual_rows": (
+        c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_float, c_ptr],
+    ),
     "gemm_bias_epilogue": (
         c_int, [c_int, c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_int, c_int, c_int, c_int, c_ptr],
     ),

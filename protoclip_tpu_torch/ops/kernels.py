@@ -36,6 +36,15 @@ the same kernels with three more epilogues and a strided LayerNorm:
 and its text tower's MLP takes the exact-GELU fc epilogue
 (``bias_gelu_erf``).
 
+The post-norm image block of EVA02-CLIP-bigE (``fused_eva_postnorm_block``,
+the port's own too) normalises each branch's output and adds it to a
+residual stream that no LayerNorm touches, with one more kernel,
+``layernorm_residual_rows`` (x + LN(branch)):
+
+    gemm_bias_epilogue(QKV) -> attention_packed -> gemm_bias_epilogue(out-proj)
+    -> layernorm_residual_rows(x + LN1) -> gemm_bias_epilogue(fc + exact GELU)
+    -> gemm_bias_epilogue(proj) -> layernorm_residual_rows(x + LN2)
+
 The block-variant bench (S1, ``scripts/bench_block_variants.py``, ported as
 ``ops/block_variants.py``) moves those cast points.  Its modes are modes of
 the same kernels: q rounded to the activation dtype before the scores and
@@ -107,6 +116,9 @@ LAUNCHES: Dict[str, int] = {
     "gemm_bias_epilogue.bias_swiglu": 0,
     "gemm_bias_epilogue.bias_gelu_erf": 0,
     "fused_eva_block": 0,
+    # EVA02-CLIP-bigE's post-norm block and its kernel
+    "layernorm_residual_rows": 0,
+    "fused_eva_postnorm_block": 0,
     # modes of the kernels above that only the block-variant bench runs;
     # each launch also counts under its kernel's name
     "attention_packed.q_round": 0,
@@ -267,6 +279,40 @@ def layernorm_sub_rows(x, scale, bias, eps: float = EVA_LN_EPS):
         "layernorm_sub_rows",
     )
     _count("layernorm_sub_rows")
+    return out
+
+
+def layernorm_residual_rows_plain(a, x, scale, bias, eps: float = EVA_LN_EPS):
+    """The post-norm residual: T(x + T(LN(a))), the LayerNorm of ``a`` as
+    :func:`layernorm_rows_plain` (fp32 statistics and affine, rounded once),
+    its sum with ``x`` in fp32 rounded once more."""
+    return (x.float() + layernorm_rows_plain(a, scale, bias, eps).float()).to(x.dtype)
+
+
+def layernorm_residual_rows(a, x, scale, bias, eps: float = EVA_LN_EPS):
+    """:func:`layernorm_residual_rows_plain` on the card (``csrc/
+    layernorm_rows.cu``): ``a`` (the branch) and ``x`` (the residual) (...,
+    D) contiguous in the activation dtype, D a multiple of 8; ``scale``/
+    ``bias`` (D,) fp32.  Each row of ``a`` and ``x`` is read once."""
+    if not a.is_cuda:
+        return layernorm_residual_rows_plain(a, x, scale, bias, eps)
+    d = a.shape[-1]
+    _require_cuda("layernorm_residual_rows", a.dtype, a=a, x=x)
+    _require_cuda("layernorm_residual_rows", torch.float32, scale=scale, bias=bias)
+    if x.shape != a.shape or scale.shape != (d,) or bias.shape != (d,):
+        raise ValueError(f"layernorm_residual_rows: a {tuple(a.shape)}, x {tuple(x.shape)}, "
+                         f"scale/bias {tuple(scale.shape)} do not chain")
+    require_pieces("layernorm_residual_rows", {"D": d}, {"a": a, "x": x})
+    out = torch.empty_like(x)
+    lib = _build.load_library()
+    _build.check(
+        lib.layernorm_residual_rows(
+            _DTYPES[a.dtype], a.data_ptr(), x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), a.numel() // d, d, eps, _stream(),
+        ),
+        "layernorm_residual_rows",
+    )
+    _count("layernorm_residual_rows")
     return out
 
 
@@ -754,6 +800,62 @@ def fused_eva_block(x, block: dict, n_head: int, cos, sin):
         attention_packed,
     )
     _count("fused_eva_block")
+    return out
+
+
+# -- the post-norm EVA-CLIP image block --------------------------------------------------
+
+
+def _eva_postnorm_block_chain(x, p, n_head, ln_residual, gemm, attention):
+    d = x.shape[-1]
+    qkv = gemm(x, p["wqkv"], p["bqkv"], "bias")
+    attn = attention(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], n_head)
+    x = ln_residual(gemm(attn, p["wo"], p["bo"], "bias"), x, p["ln1s"], p["ln1b"], EVA_LN_EPS)
+    hid = gemm(x, p["wfc"], p["bfc"], "bias_gelu_erf")
+    return ln_residual(gemm(hid, p["wproj"], p["bproj"], "bias"), x, p["ln2s"], p["ln2b"],
+                       EVA_LN_EPS)
+
+
+def fused_eva_postnorm_block_plain(x, block: dict, n_head: int):
+    """The post-norm block's plain version.  ``block`` has K2's layout
+    (``ln_1``, ``attn`` with ``bqkv`` = [bq, 0, bv], ``ln_2``, ``mlp``).
+    Cast points (T: the activation dtype; LayerNorms with fp32 statistics
+    and affine, eps 1e-6):
+
+    - qkv = T(T(x . Wqkv) + bqkv), K2's ``bias`` epilogue, with no
+      LayerNorm before it;
+    - o = attention as K2's (fp32 scores of (q * dh^-0.5) . k^T, softmax in
+      fp32, weights rounded to T, PV in fp32 rounded once);
+    - a = T(T(o . Wo) + bo);
+    - x = T(x + T(LN1(a))) (:func:`layernorm_residual_rows_plain`);
+    - h = T(GELU(x . W_fc + f32(b_fc))) in fp32, the exact (erf) GELU
+      (``bias_gelu_erf``);
+    - m = T(T(h . W_proj) + b_proj);
+    - x = T(x + T(LN2(m))).
+    """
+    _check_block_input(x, n_head, None)
+    return _eva_postnorm_block_chain(x, _block_args(block, x.dtype), n_head,
+                                     layernorm_residual_rows_plain, gemm_bias_epilogue_plain,
+                                     fused_attention_packed_plain)
+
+
+def fused_eva_postnorm_block(x, block: dict, n_head: int):
+    """One post-norm image block of EVA02-CLIP-bigE (EVA-CLIP
+    ``eva_vit_model.py::Block`` with ``postnorm``: x + LN1(Attn(x)), then x +
+    LN2(MLP(x)); a fused QKV with q and v biases, an exact-GELU MLP), in 7
+    launches.  ``x`` (B, L, D); ``block`` from ``models/eva.py``.  On the
+    card it runs in bf16 alone: other activation dtypes raise."""
+    if not x.is_cuda:
+        return fused_eva_postnorm_block_plain(x, block, n_head)
+    if x.dtype != torch.bfloat16:
+        raise TypeError("fused_eva_postnorm_block: the post-norm EVA-CLIP block runs in bfloat16 "
+                        f"on the card, not {x.dtype}")
+    _check_block_input(x, n_head, None)
+    _require_cuda("fused_eva_postnorm_block", x.dtype, x=x)
+    out = _eva_postnorm_block_chain(x, _block_args(block, x.dtype), n_head,
+                                    layernorm_residual_rows, gemm_bias_epilogue,
+                                    attention_packed)
+    _count("fused_eva_postnorm_block")
     return out
 
 

@@ -1272,3 +1272,143 @@ def test_cuda_vit_runs_only_k2s_kernels(cuda_device, backbone):
             x = kernels.gemm_bias_epilogue(m, p["wproj"], p["bproj"], "bias_residual", x)
         want = layer_norm(x[:, 0], vis["ln_post"]["scale"], vis["ln_post"]["bias"]) @ vis["proj"]
     assert torch.equal(got, want)
+
+
+# -- EVA02-CLIP-bigE's post-norm block ------------------------------------------------------------
+
+BIGE_ROWS = 1024 * 257  # the bank's batch of 1024 images of 257 tokens
+
+
+def _timed(name, fn, n_bytes, ops):
+    """``fn``'s device ms against its bound (``_card.bound_ms``), printed."""
+    ms = _card.device_ms(fn)
+    bound, by, _, _ = _card.bound_ms(n_bytes, ops)
+    print(f"{name}: {ms:.3f} ms, bound {bound:.3f} ms ({by}), {100 * bound / ms:.1f}% of it")
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("rows,d", [(BIGE_ROWS, 1792), (37, 8), (33, 200), (17, 4104),
+                                    (5, 30000)])
+def test_cuda_layernorm_residual_rows_matches_plain(cuda_device, dtype, rows, d):
+    """``layernorm_residual_rows`` (T(x + T(LN(a)))) at the bigE bank's rows
+    (1024 x 257 of 1792) and at other widths (30,000: one row a block, over
+    48 KB of shared memory) against its plain version: in bf16 by the EVA02
+    rule, refusing the LayerNorm left unrounded before the sum; in fp32 at
+    the fp32 bars, refusing the pre-norm LN(x + a).  At the bank's rows,
+    timed against its bound: a and x read once, out written once."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    a = (4 * torch.randn(rows, d, device=cuda_device, generator=g)).to(dtype)
+    x = torch.randn(rows, d, device=cuda_device, generator=g).to(dtype)
+    scale = 1 + 0.1 * torch.randn(d, device=cuda_device, generator=g)
+    bias = 0.1 * torch.randn(d, device=cuda_device, generator=g)
+    kernels.reset_launch_counts()
+    out = kernels.layernorm_residual_rows(a, x, scale, bias)
+    want = kernels.layernorm_residual_rows_plain(a, x, scale, bias)
+    if dtype == torch.bfloat16:
+        unrounded = (x.float() + kernels._layernorm_f32(a, scale, bias, kernels.EVA_LN_EPS))
+        _hold_refusing(out, want, unrounded.to(dtype))
+    else:
+        _hold_refusing(out, want, kernels.layernorm_rows_plain(x + a, scale, bias,
+                                                               kernels.EVA_LN_EPS), _bars(dtype))
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "layernorm_residual_rows": 1}
+    if rows == BIGE_ROWS:
+        vb = a.element_size()
+        _timed(f"layernorm_residual_rows ({rows}, {d}) {dtype}",
+               lambda: kernels.layernorm_residual_rows(a, x, scale, bias),
+               3 * rows * d * vb + 2 * d * 4, 10 * rows * d)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_at_head_width_112_matches_plain(cuda_device):
+    """bigE's attention: 16 heads of 112 at L = 257 (a tile's two 64-column
+    TMA boxes, the second zero-filled past column 112), in its three modes
+    and with lengths below L, against its plain version at the K2 bars; then
+    timed at the bank's batch of 1024 against its bound (q, k, v read and o
+    written once; 4 L^2 d flops)."""
+    B, L, H, dh = 32, 257, 16, 112
+    d = H * dh
+    g = torch.Generator(device=cuda_device).manual_seed(112)
+    qkv = torch.randn(B, L, 3 * d, device=cuda_device, generator=g).to(torch.bfloat16)
+    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+    for length in (L, L - 5, L - 70):
+        for mode in ("softmax", "q_round", "no_softmax"):
+            _hold(kernels.attention_packed(*sl, H, False, length, mode),
+                  kernels.fused_attention_packed_plain(*sl, H, False, length, mode),
+                  _bars(torch.bfloat16))
+    qkv = torch.randn(1024, L, 3 * d, device=cuda_device, generator=g).to(torch.bfloat16)
+    sl = (qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:])
+    _hold(kernels.attention_packed(*sl, H)[:8],
+          kernels.fused_attention_packed_plain(*(t[:8] for t in sl), H), _bars(torch.bfloat16))
+    _timed("attention_packed (1024, 257, 16 x 112)", lambda: kernels.attention_packed(*sl, H),
+           4 * BIGE_ROWS * d * 2, _card.attention_flops(1024, L, d, False))
+
+
+def _postnorm_reference():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "eva_postnorm_reference", Path(__file__).with_name("eva_postnorm_reference.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_cuda_bige_block_and_its_gemms_match_plain(cuda_device):
+    """One bigE post-norm block at its published widths (1792, 16 heads of
+    112, MLP 15360; L = 257), converted from a seeded state dict in
+    EVA-CLIP's layout, at B = 16 against its plain version at the card's
+    bf16 bars, in 7 launches; bf16 alone on the card (fp32 raises).  Then
+    its GEMMs at the bank's 1024 x 257 rows (1792 -> 5376, 1792 -> 1792,
+    1792 -> 15360 with the exact GELU, 15360 -> 1792) against their plain
+    versions on the first and last 2048 rows, each and the block timed
+    against its bound."""
+    import dataclasses
+
+    from protoclip_tpu_torch.models import clip, eva
+
+    ref = _postnorm_reference()
+    t = dict(ref.TINY, width=1792, heads=16, layers=1, hidden=15360, text_layers=0)
+    sd = {k: v for k, v in ref.postnorm_state_dict(7, t).items() if k.startswith("visual.")}
+    cfg = dataclasses.replace(clip.PORT_BACKBONE_CONFIGS["EVA02-CLIP-bigE-14-plus"],
+                              vision_layers=1, image_resolution=56)
+    bf16 = torch.bfloat16
+    blk = eva.postnorm_visual_from_state_dict(sd, cfg, bf16, cuda_device)["blocks"][0]
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x = torch.randn(16, 257, 1792, device=cuda_device, generator=g).to(bf16)
+    kernels.reset_launch_counts()
+    _hold(kernels.fused_eva_postnorm_block(x, blk, 16),
+          kernels.fused_eva_postnorm_block_plain(x, blk, 16), _bars(bf16))
+    assert {k: v for k, v in kernels.launch_counts().items() if v} == {
+        "gemm_bias_epilogue": 4, "gemm_bias_epilogue.bias_gelu_erf": 1, "attention_packed": 1,
+        "layernorm_residual_rows": 2, "fused_eva_postnorm_block": 1}
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.fused_eva_postnorm_block(x.float(), blk, 16)
+    m, d, hid = 16 * 257, 1792, 15360
+    _timed("fused_eva_postnorm_block B=16", lambda: kernels.fused_eva_postnorm_block(x, blk, 16),
+           (2 * m * d + 4 * d * d + 2 * d * hid + 4 * d + hid) * 2 + 4 * d * 4,
+           8 * m * d * d + 4 * m * d * hid + _card.attention_flops(16, 257, d, False))
+    at, mlp = blk["attn"], blk["mlp"]
+    a = torch.randn(BIGE_ROWS, d, device=cuda_device, generator=g).to(bf16)
+    ends = torch.cat([torch.arange(2048), torch.arange(BIGE_ROWS - 2048, BIGE_ROWS)])
+    for name, w, b, epi, src in (("qkv 1792 -> 5376", at["wqkv"], at["bqkv"], "bias", a),
+                                 ("out 1792 -> 1792", at["wo"], at["bo"], "bias", a),
+                                 ("fc 1792 -> 15360", mlp["w_fc"], mlp["b_fc"], "bias_gelu_erf",
+                                  a)):
+        out = kernels.gemm_bias_epilogue(src, w, b, epi)
+        _hold(out[ends], kernels.gemm_bias_epilogue_plain(src[ends], w, b, epi), _bars(bf16))
+        kk, nn = w.shape
+        _timed(f"gemm_bias_epilogue {name} ({BIGE_ROWS} rows)",
+               lambda: kernels.gemm_bias_epilogue(src, w, b, epi),
+               (BIGE_ROWS * kk + kk * nn + nn + BIGE_ROWS * nn) * 2, 2 * BIGE_ROWS * kk * nn)
+    h = out
+    del a
+    out = kernels.gemm_bias_epilogue(h, mlp["w_proj"], mlp["b_proj"], "bias")
+    _hold(out[ends], kernels.gemm_bias_epilogue_plain(h[ends], mlp["w_proj"], mlp["b_proj"],
+                                                      "bias"), _bars(bf16))
+    _timed(f"gemm_bias_epilogue proj 15360 -> 1792 ({BIGE_ROWS} rows)",
+           lambda: kernels.gemm_bias_epilogue(h, mlp["w_proj"], mlp["b_proj"], "bias"),
+           (BIGE_ROWS * hid + hid * d + d + BIGE_ROWS * d) * 2, 2 * BIGE_ROWS * hid * d)

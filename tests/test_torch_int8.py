@@ -597,5 +597,6 @@ def test_chip_smoke_lists_every_kernel():
             assert 0 < int(line) <= len(fh.readlines()), name
         if file.startswith("scripts/"):
             assert path == "variants", name
-        else:  # "eva": the EVA02-CLIP backbone's phase; "times": K1 and K4, which no path runs
-            assert path in ("main", "main_int8", "times", "eva"), name
+        else:  # "eva", "bige": the EVA-CLIP backbones' phases; "times": K1 and K4, which no
+            # path runs
+            assert path in ("main", "main_int8", "times", "eva", "bige"), name
